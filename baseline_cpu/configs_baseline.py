@@ -1,6 +1,6 @@
 """CPU-reference walls for BASELINE.json configs 2 and 5.
 
-Counterparts of ``benchmarks/configs_bench.py`` (the TPU side) measured on
+Counterparts of ``benchmarks/configs_bench.py`` (the device side) measured on
 the reference-architecture scipy pipeline, so the per-config speedup rows
 in BASELINE.md compare identical problems doing identical fixed work:
 
@@ -15,7 +15,7 @@ in BASELINE.md compare identical problems doing identical fixed work:
      into ONE sparse system (experiment chains decoupled in V, coupled
      only through the shared-parameter arrowhead columns), NOT a slow
      Python loop per experiment.  Same data, same initial guess, and the
-     same p-prior as the TPU run (seeded generator shared through
+     same p-prior as the device run (seeded generator shared through
      ``make_config5_data``).
 
 Writes ``baseline_cpu/configs_results.json`` and prints one JSON line per
@@ -89,7 +89,7 @@ class DuffingModelNP:
 
 # --------------------------------------------------------------------------
 # Config 5 shared data generation (imported by benchmarks/configs_bench.py
-# so CPU and TPU measure the IDENTICAL problem).
+# so CPU and device measure the IDENTICAL problem).
 # --------------------------------------------------------------------------
 
 C5_MU_TRUE, C5_B_TRUE, C5_TF = 1.3, 0.5, 8.0
@@ -101,7 +101,7 @@ def make_config5_data(n_exp, elements=10, seed=1):
     the mesh comes from collocfem_tpu.ops.mesh (imported at module top),
     so this module — like the rest of baseline_cpu — does require a
     working jax install; sharing the mesh object is what guarantees CPU
-    and TPU measure bit-identical problems."""
+    and device measure bit-identical problems."""
     mesh = uniform_mesh(0.0, C5_TF, elements, 4)
     t_meas = np.linspace(0.05, C5_TF - 0.05, 8 * elements)
     rng = np.random.default_rng(seed)

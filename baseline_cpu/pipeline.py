@@ -1,6 +1,6 @@
 """Numpy + scipy.sparse Gauss-Newton collocation pipeline (CPU reference).
 
-Mirrors the TPU package's residual definition exactly (same LGL tables, same
+Mirrors the device package's residual definition exactly (same LGL tables, same
 scaling, same ordering) so float64 parity to 1e-9 is checkable, but follows
 the *reference's* architecture (SURVEY.md §1/§3.1): per-element dense
 derivative blocks scattered into a global scipy.sparse matrix, SuperLU

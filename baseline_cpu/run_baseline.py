@@ -3,7 +3,7 @@
 
 Headline config (BASELINE.json north_star): full Newton estimation on a
 10k-element Van der Pol mesh.  Work is made deterministic by running a
-fixed number of LM iterations (no early exit), so CPU and TPU timings
+fixed number of LM iterations (no early exit), so CPU and device timings
 compare the same amount of assemble/factorize/solve work.
 
 Usage: python -m baseline_cpu.run_baseline [--elements 10000] [--iters 15]
@@ -28,7 +28,7 @@ TF = 10.0
 
 
 def build_headline_problem(num_elements: int, degree: int = 4):
-    """Shared by bench.py: same mesh/data/guess on CPU and TPU."""
+    """Shared by bench.py: same mesh/data/guess on CPU and device."""
     mesh = uniform_mesh(0.0, TF, num_elements, degree)
     t_meas = np.linspace(0.02, TF - 0.02, num_elements)
     sol = solve_ivp(
@@ -73,7 +73,7 @@ def main():
 
     # Converged (time-to-solution) solve: early exit on gradient/step
     # tolerances, from the same cold start — the honest counterpart of the
-    # TPU converged ladder (bench.py converged mode, north_star's "full
+    # device converged ladder (bench.py converged mode, north_star's "full
     # Newton ESTIMATION" sentence).
     t0 = time.perf_counter()
     Vc, pc, infoc = gauss_newton_baseline(

@@ -1,23 +1,23 @@
-"""TPU wall-clock for BASELINE.json configs 2-5 (round-2 verdict item 2:
-"every measured wall is config 1").
+"""GPU wall-clock for BASELINE.json configs 2-5.
 
 One JSON line per config:
   {"config": "...", "wall_s": ..., "detail": {...}}
 
-Measured quantity per config (compile excluded, best of --reps, each rep
-bounded by a scalar device->host fetch — see bench.py for why):
+Measured quantity per config (compile excluded, median of --reps, each rep
+bounded by ``jax.block_until_ready`` on its result — bench.wall_stats):
 
   2. Duffing joint MAP, N=1000 x degree 4: one full LM estimation
-     (maxiter=25 fixed work, the SoA/SPIKE hot path).
+     (time to the λ-rail stall, maxiter=40).
   3. Pendulum swing-up OCP (25 elements): the full AL + barrier solve
-     (14 outer stages), method resolved per backend ('spike' on TPU).
+     (14 outer stages).
   4. Aircraft output-error, N=200: full LM estimation (maxiter=40).
-  5. Batched multi-experiment: --experiments x --elements-5 shared-parameter
-     LM (maxiter=15 fixed work; batched single-kernel Thomas chain solve on
-     TPU).
+  5. Batched multi-experiment: --experiments x 10-element shared-parameter
+     LM (maxiter=15 fixed work).
+
+Needs a GPU.  Exits non-zero when any config fails.
 
 Usage: python benchmarks/configs_bench.py [--configs 2,3,4,5]
-         [--experiments 1024] [--reps 3]
+         [--experiments 1024] [--reps 5]
 """
 
 import sys, os
@@ -31,22 +31,16 @@ import numpy as np
 
 
 def _bench(solve, args_, reps):
+    """(median wall, compile + first-run seconds, output) of solve(*args_)."""
     import jax
 
+    from bench import wall_stats
+
     t0 = time.perf_counter()
-    out = solve(*args_)
-    jax.block_until_ready(out)
-    leaf = jax.tree_util.tree_leaves(out)[0]
-    float(np.asarray(leaf).ravel()[0])
+    out = jax.block_until_ready(solve(*args_))
     compile_s = time.perf_counter() - t0
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        out = solve(*args_)
-        jax.block_until_ready(out)
-        float(np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[0])
-        walls.append(time.perf_counter() - t0)
-    return min(walls), compile_s, out
+    wall = wall_stats(lambda: solve(*args_), reps)
+    return wall["median_s"], compile_s, out
 
 
 def config2_duffing(reps):
@@ -116,10 +110,7 @@ def config3_pendulum(reps):
 
 def config3_large(reps, elements=500):
     """Swing-up at N >= 500 elements: the constrained stack's scaling
-    benchmark (round-4 verdict: no OCP larger than 25 elements was
-    measured anywhere).  Same continuous problem as config 3; the SoA
-    assembly + single-kernel chain solve are the same code paths as the
-    estimation headline."""
+    benchmark.  Same continuous problem as config 3, solved cold."""
     from collocfem_tpu.models import Pendulum
     from collocfem_tpu.ocp import OptimalControlProblem
     from collocfem_tpu.ops.mesh import uniform_mesh
@@ -224,18 +215,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", default="2,3,4,5")
     ap.add_argument("--experiments", type=int, default=1024)
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--c5-layout", default="auto",
                     help="config 5 pipeline: auto|soa|blocks (before/after "
                     "for the batched-SoA-assembly change)")
     args = ap.parse_args()
 
     from collocfem_tpu.utils.cache import enable_persistent_cache
+    from collocfem_tpu.utils.device import card_line, require_gpu
 
+    devs = require_gpu()
+    print(f"card: {card_line()}", file=sys.stderr)
     enable_persistent_cache()
-    import jax
-
-    backend = jax.default_backend()
+    kind = devs[0].device_kind
     runners = {
         "2": ("duffing_joint_n1000", lambda: config2_duffing(args.reps)),
         "3": ("pendulum_swingup_ocp", lambda: config3_pendulum(args.reps)),
@@ -246,19 +238,22 @@ def main():
               lambda: config5_batched(args.reps, args.experiments,
                                       layout=args.c5_layout)),
     }
+    failed = []
     for key in args.configs.split(","):
         name, fn = runners[key.strip()]
         try:
             wall, compile_s, detail = fn()
-            print(json.dumps({
-                "config": name, "backend": backend,
-                "wall_s": round(wall, 4),
-                "compile_s": round(compile_s, 1),
-                "detail": detail,
-            }), flush=True)
-        except Exception as e:
+        except Exception as e:  # report every config, then fail the run
             print(json.dumps({"config": name, "error": str(e)[:300]}),
                   flush=True)
+            failed.append(name)
+            continue
+        print(json.dumps({
+            "config": name, "device_kind": kind,
+            "wall_s": wall, "compile_s": compile_s, "detail": detail,
+        }), flush=True)
+    if failed:
+        raise SystemExit(f"configs failed: {failed}")
 
 
 if __name__ == "__main__":

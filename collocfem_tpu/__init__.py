@@ -1,6 +1,6 @@
-"""collocfem_tpu — TPU-native collocation-FEM estimation & trajectory optimization.
+"""collocfem_tpu — on-device collocation-FEM estimation & trajectory optimization.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the research code
+A ground-up JAX/XLA re-design of the capabilities of the research code
 ``dimasad/colloc-fem-code`` (direct LGL collocation for ODE-constrained
 parameter estimation, joint MAP state-path estimation, and trajectory
 optimization).  Design blueprint: ``SURVEY.md`` at the repo root.  No file:line

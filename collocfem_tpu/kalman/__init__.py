@@ -4,9 +4,9 @@ Capability parity target: the reference lineage's ``kalman`` module
 (SURVEY.md §0 [R]: the ceacoest research line uses Kalman/unscented
 filtering both as an estimator in its own right and to produce initial
 guesses for the joint MAP collocation estimation).  Reimplemented
-TPU-first: every filter/smoother is a ``lax.scan`` over time with static
+on device: every filter/smoother is a ``lax.scan`` over time with static
 shapes (vmap over experiments for free), the float32-safe path is a
-QR-based square-root form (QR runs on the MXU), and the innovations
+QR-based square-root form, and the innovations
 negative log-likelihood (prediction-error method) is differentiable
 end-to-end for ML parameter estimation.
 

@@ -5,7 +5,7 @@ square roots and every propagation/update is one QR triangularization of a
 stacked pre-array (Kailath array algorithm), so covariances stay PSD by
 construction at roughly half the working precision's condition-number
 sensitivity — the same trick that makes the f32 collocation stack viable
-(SURVEY.md §7 hard part 4), and QR maps straight onto the TPU MXU.
+(SURVEY.md §7 hard part 4).
 
 Smoother uses the all-PSD Joseph form
 

@@ -7,8 +7,8 @@ IPOPT via Python callbacks — a C++→Python boundary every iteration (SURVEY.m
 §3.3 marks it as the perf bottleneck).  No file:line citations possible —
 reference mount empty (SURVEY.md §0).
 
-TPU-first design
-----------------
+Design
+------
 Controls become node decision variables alongside the states: each global
 node carries ``v = [x (nx); u (nu)]``, so the Gauss-Newton KKT matrix keeps
 the *same* uniform block-tridiagonal structure as estimation (blocks of

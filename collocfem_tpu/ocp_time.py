@@ -5,8 +5,8 @@ include free-final-time formulations (time enters the NLP as a decision
 variable handed to IPOPT).  No file:line citations possible — the reference
 mount was empty (SURVEY.md §0).
 
-TPU-first design
-----------------
+Design
+------
 A data-dependent horizon would make every mesh table dynamic — hostile to
 XLA's static-shape compilation model.  Instead the problem is transcribed in
 **normalized time** s ∈ [0, 1] on a *static* mesh, and the horizon enters as

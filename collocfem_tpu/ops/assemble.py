@@ -119,8 +119,9 @@ def assemble_gn(problem, z, data, with_cost: bool = False):
 
     Per element: residual r_e and Jacobians (J_x (m, (d+1)nv), J_p (m, nq))
     via vmapped jacfwd; dense normal-equation blocks J^T J / J^T r are formed
-    on the MXU and scattered with static index maps.  With ``with_cost``,
-    also returns the double-word cost at ``z`` (reusing the residuals).
+    as batched contractions and scattered with static index maps.  With
+    ``with_cost``, also returns the double-word cost at ``z`` (reusing the
+    residuals).
     """
     mesh, model = problem.mesh, problem.model
     n, d, nv, nq = mesh.num_elements, mesh.degree, problem.nv, model.nq
@@ -138,7 +139,7 @@ def assemble_gn(problem, z, data, with_cost: bool = False):
         return r, jx, jp
 
     r, jx, jp = jax.vmap(per_elem, in_axes=(0, 0))(xe, ed)
-    # Dense per-element normal-equation blocks (MXU work).
+    # Dense per-element normal-equation blocks.
     hxx = einsum_hp("emi,emj->eij", jx, jx)          # (N, s, s)
     hxp = einsum_hp("emi,emq->eiq", jx, jp)          # (N, s, nq)
     hpp = einsum_hp("emq,emr->qr", jp, jp)           # (nq, nq)
@@ -223,7 +224,7 @@ def assemble_newton(problem, z, data):
 
 
 def soa_from_blocks(sys: BlockTriSystem) -> BlockTriSystemSoA:
-    """Block-major -> SoA layout (chain index to the vector lanes)."""
+    """Block-major -> SoA layout (chain index to the minor axis)."""
     return BlockTriSystemSoA(
         D=jnp.moveaxis(sys.D, 0, -1),
         E=jnp.moveaxis(sys.E, 0, -1),
@@ -239,8 +240,8 @@ def scatter_gn_blocks_soa(hxx, hxp, hpp, gxe, gpe, *, num_blocks, nv,
     """SoA twin of :func:`scatter_gn_blocks` — element-LAST inputs.
 
     Args: hxx (s, s, N), hxp (s, nq, N), gxe (s, N) with the element axis
-    on the vector lanes; hpp/gpe as in the block-major version.  Built in
-    2D (rows, K) form (lanes on the chain) and bitcast to 3D — the same
+    minor; hpp/gpe as in the block-major version.  Built in
+    2D (rows, K) form (chain minor) and bitcast to 3D — the same
     layout discipline as assemble_gn_soa, so no block-major intermediates
     exist anywhere (OCP hot loops previously paid a soa_from_blocks
     conversion per inner LM iteration).
@@ -284,7 +285,7 @@ def node_block_scatter_soa(sys, Hn, Bn, gn, degree):
 
     Hn (nv, nv, M), Bn (nv, nq, M), gn (nv, M); node m lives in block
     m // d at node-offset m % d, so nodes of a fixed offset land on
-    CONSECUTIVE lanes — d static strided lane-slices, no dynamic scatter
+    CONSECUTIVE chain slots — d static strided slices, no dynamic scatter
     (the same discipline as solve.bounds' barrier adds).
     """
     bd, _, k = sys.D.shape
@@ -322,11 +323,9 @@ def assemble_newton_soa(problem, z, data) -> "BlockTriSystemSoA":
 class BlockTriSystemSoA(NamedTuple):
     """The same damped-GN system in structure-of-arrays layout.
 
-    The chain index K rides the LAST (vector-lane) axis of every field:
-    (K, b, b) block-major arrays tile-pad 16x on TPU and every layout
-    shuffle of them costs ~20 ms at K=10^4 — measured to dominate the whole
-    Newton iteration.  In SoA form the assembly scatters become static
-    slices and no transposes exist anywhere in the hot path.
+    The chain index K is the LAST (minor) axis of every field, so the
+    assembly scatters become static slices and no transposes exist
+    anywhere in the hot path.
 
       D (bd, bd, K), E (bd, bd, K), B (bd, nq, K), gx (bd, K),
       C (nq, nq), gp (nq,).
@@ -349,7 +348,7 @@ class BlockTriSystemSoA(NamedTuple):
 
 
 def assemble_gn_soa(problem, z, data, with_cost: bool = False, v_lo=None):
-    """SoA twin of :func:`assemble_gn` — the TPU hot-path assembly.
+    """SoA twin of :func:`assemble_gn` — the hot-path assembly.
 
     Per-element jacfwd as in assemble_gn, but the normal-equation einsums
     emit the element axis LAST and the block-chain scatter is two static
@@ -389,15 +388,12 @@ def assemble_gn_soa(problem, z, data, with_cost: bool = False, v_lo=None):
 
         r, jx, jp = jax.vmap(per_elem_dw, in_axes=(0, 0, 0))(xe, ed, xe_lo)
 
-    # 2D-first construction (round-5 layout fix): every chain array is
-    # built as (rows, K) — whose DEFAULT layout puts the chain on the
-    # 128-wide vector lanes — and bitcast-reshaped to the 3D SoA shape at
-    # the end.  Building in 3D (bd, bd, K) let XLA propagate the
-    # contraction emitters' block-major {0,1,2} layout into the whole
-    # scatter chain, where each update ran at 8/128 lane occupancy (the
-    # diagonal-add dynamic-update-slice alone was ~1 ms/iteration in the
-    # device trace, ~30% of the LM iteration).  The per-piece contractions
-    # below also skip the never-used hxx[bd:, :bd] cross block.
+    # 2D-first construction: every chain array is built as (rows, K) —
+    # whose default layout keeps the chain minor — and bitcast-reshaped to
+    # the 3D SoA shape at the end.  Building in 3D (bd, bd, K) lets XLA
+    # propagate the contraction emitters' block-major {0,1,2} layout into
+    # the whole scatter chain.  The per-piece contractions below also skip
+    # the never-used hxx[bd:, :bd] cross block.
     jx1, jx2 = jx[:, :, :bd], jx[:, :, bd:]
     h11 = einsum_hp("emi,emj->ije", jx1, jx1).reshape(bd * bd, n)
     h22 = einsum_hp("emi,emj->ije", jx2, jx2)        # (nv, nv, N)
@@ -495,14 +491,14 @@ def assemble_gn_soa_batched(problem, Vb, p, data_batch, with_cost: bool = False)
     the lane axis, experiment-major: chain slot ``x*K + k`` holds experiment
     x's block k, and the coupling block at each experiment's last slot is
     left ZERO, so the concatenated matrix is exactly block-diagonal over
-    experiments — a valid block-tridiagonal chain the headline single-kernel
-    SPIKE solver (ops.spike_pallas) factors as-is.  The parameter strip
+    experiments — a valid block-tridiagonal chain the SoA cyclic reduction
+    (solve.blocktri.blocktri_cr_factor_soa) factors as-is.  The parameter strip
     B and corner C accumulate over ALL experiments, so the arrowhead Schur
     complement of the concatenated system IS the shared-parameter Schur sum
     of parallel.batch (SURVEY.md §3.5).
 
-    Versus ``vmap(assemble_gn)`` (block-major (E, K, b, b), 16x tile-padding
-    and a per-field layout shuffle before any SoA solver), every scatter
+    Versus ``vmap(assemble_gn)`` (block-major (E, K, b, b) and a per-field
+    layout shuffle before any SoA solver), every scatter
     here is a static slice on the minor axes of (bd, bd, E, K) intermediates
     and the final reshape to (bd, bd, E*K) is layout-free.
 

@@ -6,13 +6,13 @@ basis, and quadrature tables are precomputed device-resident arrays").  No
 file:line citations are possible — the /root/reference mount was empty
 (SURVEY.md §0).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 All tables are computed **once, on the host, in numpy float64** (root finding
 and barycentric weights want full precision and run at problem-build time,
 never in the hot loop).  They are tiny ((d+1)² floats) and are converted to
 device arrays of the working dtype when a problem is built, after which every
-use is a dense matmul that XLA maps onto the MXU.
+use is a small dense matmul.
 """
 
 from __future__ import annotations

@@ -1,26 +1,24 @@
 """Double-word (double-double) f32 arithmetic from error-free transforms.
 
-TPU-native extended precision (SURVEY.md §7 hard part 4): XLA:TPU's
-emulated float64 works but compiles prohibitively slowly — measured on
-v5e, the N=200 VdP Gauss-Newton graph took 1424 s to compile (vs ~2 min
-for f32) and ran 4.4x slower per step; scaling the graph further is
-hopeless.  A double-word number ``x = hi + lo`` (|lo| <= ulp(hi)/2)
-carries ~2x24 = 48 significand bits (unit roundoff ~4e-15, between f32 and
-f64) using ONLY native IEEE f32 adds/muls on the VPU — every operation
-below is a short fixed sequence of full-width elementwise ops, so it
-vectorizes over the (K,)-lane chain layout exactly like plain f32.
+Extended precision for float32 working data (SURVEY.md §7 hard part 4).
+A double-word number ``x = hi + lo`` (|lo| <= ulp(hi)/2) carries ~2x24 = 48
+significand bits (unit roundoff ~4e-15, between f32 and f64) using ONLY
+IEEE f32 adds/muls — every operation below is a short fixed sequence of
+full-width elementwise ops, so it vectorizes over the (K,) chain layout
+exactly like plain f32.  Whether this tier beats native float64 in time to
+accuracy on a given device is a measurement, not an assumption.
 
 Algorithms are the classical error-free transforms (Knuth two-sum, Dekker
-split/two-prod — no FMA required, which TPU VPUs don't expose) and the
+split/two-prod — no FMA required) and the
 double-double add/mul/div/sqrt built from them; see Hida, Li & Bailey,
 "Library for double-double and quad-double arithmetic" (2007).
 
 Correctness relies on round-to-nearest IEEE arithmetic without value-
-changing reassociation, which XLA guarantees by default (it has no
-fast-math mode on TPU); tests validate every op against a float64 oracle.
+changing reassociation, which XLA keeps by default; tests validate every
+op against a float64 oracle.
 
-Works for any base dtype (f32 on TPU; tests also exercise f64-based DW on
-CPU), but f32 is the intended use.
+Works for any base dtype (tests also exercise f64-based DW on CPU), but
+f32 is the intended use.
 """
 
 from __future__ import annotations

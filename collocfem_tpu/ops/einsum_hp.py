@@ -1,12 +1,12 @@
 """Full-precision einsum for the solver-critical contractions.
 
-On TPU, JAX's default matmul precision for float32 operands is *bfloat16*
-(one MXU pass) — fine for neural nets, catastrophic for Gauss-Newton
-assembly and block factorizations: the KKT system loses ~5 significant
-digits and the damped solver stalls.  Every numerically-critical
-contraction in this package goes through :func:`einsum_hp`, which pins
-``Precision.HIGHEST`` (6-pass f32-accurate MXU) regardless of the global
-``jax_default_matmul_precision`` setting.
+On an NVIDIA GPU, XLA may run a float32 matrix product on the tensor cores
+in *TF32* (10-bit mantissa, ~3 decimal digits) at the default precision —
+fine for neural nets, catastrophic for Gauss-Newton assembly and block
+factorizations: the KKT system loses digits and the damped solver stalls.
+Every numerically-critical contraction in this package goes through
+:func:`einsum_hp`, which pins ``Precision.HIGHEST`` (full f32) regardless
+of the global ``jax_default_matmul_precision`` setting.
 """
 
 from __future__ import annotations
@@ -16,6 +16,6 @@ import jax.numpy as jnp
 
 
 def einsum_hp(subscripts, *operands, **kwargs):
-    """jnp.einsum pinned to Precision.HIGHEST (f32-accurate on TPU MXU)."""
+    """jnp.einsum pinned to Precision.HIGHEST (full f32, never TF32)."""
     kwargs.setdefault("precision", jax.lax.Precision.HIGHEST)
     return jnp.einsum(subscripts, *operands, **kwargs)

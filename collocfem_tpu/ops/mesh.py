@@ -11,8 +11,8 @@ t_N.  Element e carries a degree-d LGL node set; adjacent elements share
 their boundary node (C^0 continuity is *structural*: a shared global DOF, not
 a constraint equation).  Total global nodes M = N*d + 1.
 
-TPU-first block layout
-----------------------
+Block layout
+------------
 For the block-tridiagonal KKT structure the global node vector is padded to
 ``(N+1) * d`` nodes and partitioned into K = N+1 groups of d consecutive
 nodes.  Element e touches the d nodes of group e plus the *first* node of

@@ -30,7 +30,7 @@ def element_derivative(diff: jnp.ndarray, width, Xe: jnp.ndarray) -> jnp.ndarray
     element-left value is subtracted first — mathematically identical, but
     it removes the O(|X|) cancellation in D @ X that left the derivative
     with only ~3 significant digits in float32 on fine meshes (h ~ 1e-3),
-    which stalled convergence at N ~ 10^4 elements on TPU.
+    which stalled float32 convergence at N ~ 10^4 elements.
     """
     return (2.0 / width) * einsum_hp(
         "kj,jn->kn", diff, Xe - Xe[:1], preferred_element_type=Xe.dtype

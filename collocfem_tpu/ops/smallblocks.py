@@ -1,12 +1,12 @@
-"""Batched tiny-block linear algebra, unrolled for the TPU VPU.
+"""Batched tiny-block linear algebra, unrolled into elementwise ops.
 
 The block-tridiagonal KKT factorization works on huge *batches* of tiny SPD
 blocks (bd = d*nv, typically 8-16).  ``jnp.linalg.cholesky`` /
 ``solve_triangular`` lower to blocked LAPACK-style loops that neither fuse
 nor vectorize well at these sizes; here the small dimension is **unrolled in
 Python at trace time**, so every arithmetic op is an elementwise op over the
-batch axis — exactly the shape the VPU wants (batch along sublanes/lanes),
-and XLA fuses whole factorizations into a handful of kernels.  This is the
+batch axis, and XLA fuses whole factorizations into a handful of
+kernels.  This is the
 "pack multiple elements per tile" resolution of SURVEY.md §7 hard part 1.
 
 All functions take (..., b, b) / (..., b, r) arrays with static small ``b``

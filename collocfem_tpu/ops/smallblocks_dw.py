@@ -1,15 +1,14 @@
-"""Double-word tiny-block algebra in SoA layout (chain on the lanes).
+"""Double-word tiny-block algebra in SoA layout (chain on the minor axis).
 
-The ~48-bit-significand twin of ``ops.smallblocks_soa``: same math, with
-every scalar op in double-word f32 (``ops.doubleword``).  This is the
+Block Cholesky, triangular solves and products with every scalar op in
+double-word f32 (``ops.doubleword``).  This is the
 factorization precision that carries cyclic reduction past the f32
 conditioning cliff (the equilibrated collocation chain has cond ~ K^2,
-crossing f32's workable range at K ~ 1e4 elements) on native f32 VPU
-arithmetic — the TPU-native alternative to XLA's emulated f64, whose
-compile time explodes beyond toy graphs.
+crossing f32's workable range at K ~ 1e4 elements) on plain f32
+elementwise arithmetic.
 
 Trace-size design: a DW scalar op costs ~10-20 XLA primitives, so the
-fully scalar-unrolled structure of ``smallblocks_soa`` (fine for plain
+fully scalar-unrolled structure of ``ops.smallblocks`` (fine for plain
 f32) would trace ~10^5 equations per b=8 cyclic-reduction level (measured:
 139k eqns, 100 s trace).  Here every inner loop is VECTORIZED over block
 indices: contractions are one broadcasted ``dw.mul`` over a (b, m, c, K)
@@ -19,7 +18,7 @@ per factorization instead of O(b^3).  The pairwise reduction is also more
 accurate than sequential summation.
 
 Matrices are ``DW`` pairs of (b, b|r, K) arrays; all DW ops broadcast, so
-the K chain axis rides the vector lanes untouched.
+the K chain axis stays the minor axis untouched.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
-"""Parallelism layer (SURVEY.md §2c / §5): TPU-native analogues of the
+"""Parallelism layer (SURVEY.md §2c / §5): on-device analogues of the
 distributed strategies the reference lacks (it is a single-process CPU code).
 
   * ``collocfem_tpu.parallel.meshes``  — device-mesh construction policy
-    (the "comm backend" deliverable of SURVEY.md §2c: ICI/DCN is reached
-    exclusively through jax.sharding meshes; there is no NCCL/MPI tier).
+    (the "comm backend" deliverable of SURVEY.md §2c: the interconnect is
+    reached only through jax.sharding meshes and XLA's collectives; there
+    is no hand-written NCCL/MPI tier).
   * ``collocfem_tpu.parallel.spike``   — element-chain (time-mesh) sharding
     of the block-tridiagonal KKT solve: SPIKE/substructuring with interface
-    Schur complements exchanged over ICI — the CP/ring analogue.
+    Schur complements exchanged between devices — the CP/ring analogue.
   * ``collocfem_tpu.parallel.batch``   — multi-experiment data parallelism:
     per-experiment GN systems solved in-shard, shared-parameter Schur
     complement reduced with ``psum`` — the DP analogue.

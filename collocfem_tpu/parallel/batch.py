@@ -39,7 +39,7 @@ from collocfem_tpu.ops.assemble import (
     blocks_to_nodes,
 )
 from collocfem_tpu.problem import Decision
-from collocfem_tpu.solve.blocktri import SOLVERS
+from collocfem_tpu.solve.blocktri import SOLVERS, blocktri_cr_factor_soa
 from collocfem_tpu.solve.lm_core import LMAux, lm_loop, psum_dw
 from collocfem_tpu.solve.newton import (
     HISTORY_COLS,
@@ -58,21 +58,6 @@ class BatchDecision(NamedTuple):
 
 def _psum_maybe(x, axis_name):
     return jax.lax.psum(x, axis_name) if axis_name is not None else x
-
-
-def batched_chain_solver(tile_e: int = 128):
-    """The TPU hot path for short per-experiment chains: the ENTIRE batch
-    of block-tridiagonal factorizations + solves runs in one Mosaic
-    program (ops.blocktri_pallas.batched_thomas_solve), experiments riding
-    the vector lanes — the per-chain XLA pipeline costs one kernel launch
-    per elimination step, which dominates at K ~ 10 blocks."""
-    from collocfem_tpu.ops.blocktri_pallas import batched_thomas_solve
-
-    def solver(D, E, G):
-        return batched_thomas_solve(D, E, G, tile_e=tile_e)
-
-    solver.batched = True
-    return solver
 
 
 def _local_cost(problem, z: BatchDecision, data_batch):
@@ -110,34 +95,11 @@ def _batch_cost_dw(problem, z: BatchDecision, data_batch, p_prior, p_w,
     return dw.mul_single(s, 0.5)
 
 
-def concat_chain_solver():
-    """Chain solve for the concatenated batch chain: the single-kernel SPIKE
-    program on TPU (factor + apply + back-sub in one Mosaic launch), SoA
-    cyclic reduction elsewhere — or on TPU when the concatenated E*K chain
-    is too long for the whole-chain-in-VMEM kernel
-    (ops.spike_pallas.SPIKE_MAX_CHAIN; the chain length is a trace-time
-    shape, so the choice is per-batch-size and costs nothing at runtime).
-    Signature: ``solve(D, E, G) -> X`` in the SoA (b, b, K) / (b, r, K)
-    convention."""
-    from collocfem_tpu.solve.blocktri import blocktri_cr_factor_soa
-
-    def cr_solve(D, E, G):
-        return blocktri_cr_factor_soa(D, E)(G)
-
-    if jax.default_backend() != "tpu":
-        return cr_solve
-
-    from collocfem_tpu.ops.spike_pallas import (
-        blocktri_solve_spike_fused,
-        spike_fits_vmem,
-    )
-
-    def solve(D, E, G):
-        if spike_fits_vmem(D.shape[-1], D.shape[0], G.shape[1]):
-            return blocktri_solve_spike_fused(D, E, G)
-        return cr_solve(D, E, G)
-
-    return solve
+def concat_chain_solve(D, E, G):
+    """Chain solve for the concatenated batch chain: SoA cyclic reduction
+    in the (b, b, K) / (b, r, K) convention (zero coupling at experiment
+    boundaries keeps the experiments independent)."""
+    return blocktri_cr_factor_soa(D, E)(G)
 
 
 def shared_gn_step_soa(
@@ -156,7 +118,7 @@ def shared_gn_step_soa(
     system (ops.assemble.assemble_gn_soa_batched) — config 5's hot path.
 
     The whole local batch is one (bd, bd, n_exp*K) chain with zero coupling
-    at experiment boundaries, so a single chain solve (SPIKE on TPU)
+    at experiment boundaries, so a single chain solve
     factors every experiment at once and the arrowhead Schur complement IS
     the shared-parameter reduction.  Damping is dimensionless per
     EXPERIMENT (lam * max diagonal of experiment e's blocks — identical to
@@ -264,11 +226,9 @@ def shared_gn_step(
 
     Args:
       chain_solver: ``solve(D, E, G) -> X`` for one block-tridiagonal system
-        (default: cyclic reduction).  Pass a vmap-compatible SPIKE closure to
-        additionally shard each chain over "sp", or a *batched* solver
-        (operating on a leading experiment axis, e.g. the fused Pallas
-        Thomas kernel in ops.blocktri_pallas) marked with
-        ``chain_solver.batched = True``.
+        (default: cyclic reduction), vmapped over the experiments.  Pass a
+        vmap-compatible SPIKE closure to additionally shard each chain over
+        "sp".
       dp_axis: mesh axis name for the parameter psum (None = single shard).
     Returns:
       (dV (n_exp, M, nv), dp (nq,), gnorm, aux) where aux carries the
@@ -292,10 +252,7 @@ def shared_gn_step(
     d_damped = sys_b.D + (lam * dmax)[:, None, None, None] * eye_b
 
     rhs = jnp.concatenate([sys_b.gx[..., None], sys_b.B], axis=-1)
-    if getattr(chain_solver, "batched", False):
-        x = chain_solver(d_damped, sys_b.E, rhs)         # fused over batch
-    else:
-        x = jax.vmap(chain_solver)(d_damped, sys_b.E, rhs)
+    x = jax.vmap(chain_solver)(d_damped, sys_b.E, rhs)
     # x: (n_exp, K, bd, 1+nq)
     a_g, a_b = x[..., 0], x[..., 1:]
 
@@ -317,7 +274,7 @@ def shared_gn_step(
                        jnp.finfo(s_tot.dtype).tiny)
     s_tot = s_tot + (lam * smax) * jnp.eye(nq, dtype=s_tot.dtype)
     r_tot = r_tot + pw2 * (z.p - p_prior)
-    # Unrolled SPD solve: XLA:TPU's LU expander is f32-only (no f64).
+    # Unrolled SPD solve (ops.smallblocks): tiny nq, fuses with its inputs.
     dp = -spd_solve(s_tot, r_tot[:, None])[:, 0]
     dx = -(a_g + einsum_hp("ekbq,q->ekb", a_b, dp))
     dV = jax.vmap(lambda d: blocks_to_nodes(d, problem.num_nodes, problem.nv))(dx)
@@ -359,20 +316,19 @@ def make_multi_experiment_solver(
 
     ``layout`` selects the assembly/solve pipeline:
       * ``"soa"`` — the CONCATENATED-chain SoA hot path: one batched SoA
-        assembly (assemble_gn_soa_batched, experiments side by side on the
-        vector lanes) feeding one single-kernel SPIKE chain solve, with the
+        assembly (assemble_gn_soa_batched, experiments side by side along
+        the chain axis) feeding one cyclic-reduction chain solve, with the
         trial cost read off the assembly's own residuals (the speculative
         with_cost structure of solve.newton).  No block-major (E, K, b, b)
-        arrays — and their 16x tile-padding — exist anywhere.
+        arrays exist anywhere.
       * ``"blocks"`` — the vmapped block-major path (per-experiment
-        assemble_gn + batched Pallas Thomas / per-chain CR), kept for
-        custom ``chain_solver`` closures (e.g. the dp x sp sharded SPIKE).
+        assemble_gn + per-chain CR), kept for custom ``chain_solver``
+        closures (e.g. the dp x sp sharded SPIKE).
       * ``"auto"`` — "blocks" when a ``chain_solver`` is supplied,
         "soa" otherwise.
 
-    ``chain_solver`` (blocks layout only) resolves like
-    SolverOptions.method='auto' when None: the single-kernel batched Pallas
-    Thomas solve on TPU, per-chain cyclic reduction elsewhere.
+    ``chain_solver`` (blocks layout only) defaults to per-chain cyclic
+    reduction.
     """
     opt = options
     if layout == "auto":
@@ -381,7 +337,6 @@ def make_multi_experiment_solver(
         raise ValueError(f"unknown layout {layout!r}")
 
     if layout == "soa":
-        chain_solve = concat_chain_solver()
         k = problem.mesh.num_elements + 1
 
         def solve(z0: BatchDecision, data_batch, p_prior, p_w):
@@ -390,7 +345,8 @@ def make_multi_experiment_solver(
             def trial_fn(z, sys, lam):
                 dV, dp, aux = shared_gn_step_soa(
                     problem, sys, lam, z.p, p_prior, p_w,
-                    n_exp=n_exp, chain_solve=chain_solve, dp_axis=dp_axis,
+                    n_exp=n_exp, chain_solve=concat_chain_solve,
+                    dp_axis=dp_axis,
                 )
                 z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
                 sys_try, ct_loc = assemble_gn_soa_batched(
@@ -415,9 +371,6 @@ def make_multi_experiment_solver(
         if dp_axis is None:
             return jax.jit(solve)
         return solve
-
-    if chain_solver is None and jax.default_backend() == "tpu":
-        chain_solver = batched_chain_solver()
 
     def solve(z0: BatchDecision, data_batch, p_prior, p_w):
         def trial_fn(z, carry, lam):

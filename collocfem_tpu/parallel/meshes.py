@@ -1,18 +1,17 @@
 """Device-mesh construction policy — the rebuild's "communication backend".
 
 SURVEY.md §2c: the reference has no distributed backend at all (single CPU
-process); on TPU the backend *is* the sharding policy — XLA inserts
-all-reduce/ppermute/all-gather over ICI (intra-slice) and DCN (across
-slices) from mesh + sharding annotations.  This module is the single place
-where axis names and their meaning are defined:
+process); here the backend *is* the sharding policy — XLA inserts the
+all-reduce/ppermute/all-gather collectives from mesh + sharding
+annotations.  This module is the single place where axis names and their
+meaning are defined:
 
   axis "dp" — data parallel over independent experiments (BASELINE.json
-              config 5, 1024 trajectories).  Cheap, outermost: the only
-              cross-shard traffic is the tiny shared-parameter Schur
-              complement psum, so "dp" may span DCN.
+              config 5, 1024 trajectories).  The only cross-shard traffic
+              is the tiny shared-parameter Schur complement psum.
   axis "sp" — sequence/element-chain parallel over the collocation time
-              mesh (the CP analogue, SURVEY.md §5).  Exchanges interface
-              blocks every solve: must ride ICI.
+              mesh (the CP analogue, SURVEY.md §5).  Exchanges halo and
+              interface blocks every solve.
 """
 
 from __future__ import annotations
@@ -29,10 +28,10 @@ SP_AXIS = "sp"
 def make_device_mesh(dp: int = 1, sp: int = 1, devices=None) -> Mesh:
     """Build a (dp, sp) device mesh.
 
-    ``sp`` is the minor (fastest-varying) axis so that consecutive devices —
-    which are ICI neighbours under JAX's default device ordering — hold
-    consecutive element-chain shards; "dp" gets the outer axis and may
-    span slower links.
+    Devices fill the grid in ``jax.devices()`` order with ``sp`` minor, so
+    consecutive devices hold consecutive element-chain shards.  No topology
+    ordering is needed on cards joined all to all (NVLink within one host):
+    every pair of devices is one hop apart.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     if dp * sp > devices.size:

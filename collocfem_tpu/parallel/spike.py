@@ -5,7 +5,7 @@ The CP/ring-attention analogue for this workload (SURVEY.md §2c, §5): the
 collocation element chain is partitioned into contiguous shards; each device
 eliminates its interior blocks with a local pivot-free block-Cholesky solve,
 the shards' boundary blocks form a small SPD block-tridiagonal *interface
-system* (2 blocks per shard) that is all-gathered over ICI and solved
+system* (2 blocks per shard) that is all-gathered across devices and solved
 redundantly on every device, and the interiors are recovered by local
 back-substitution.  Communication per solve: one all-gather of
 (2, b, b)-sized interface blocks — O(P b^2), independent of mesh size K.
@@ -84,7 +84,7 @@ def blocktri_solve_spike(
     e_red = jnp.stack([s_lr, E[m - 1]])                  # (2, b, b)
     g_red = jnp.stack([gh_l, gh_r])                      # (2, b, r)
 
-    # One all-gather over ICI; every shard solves the small system redundantly
+    # One all-gather; every shard solves the small system redundantly
     # (2P blocks) — cheaper than a distributed solve at these sizes.
     d_all = jax.lax.all_gather(d_red, axis_name).reshape(-1, b, b)
     e_all = jax.lax.all_gather(e_red, axis_name).reshape(-1, b, b)

@@ -79,7 +79,7 @@ def estimate_multilevel(
 ):
     """Nested-iteration estimation: solve coarse, prolong, re-solve.
 
-    The float32 TPU path is conditioning-limited for single-shot solves on
+    The float32 path is conditioning-limited for single-shot solves on
     very fine meshes: the Jacobi-equilibrated collocation chain behaves
     like a 1-D Poisson operator with cond ~ K^2, which crosses the float32
     Cholesky cliff (~1/eps) around K ~ 10^4.  Classic nested iteration

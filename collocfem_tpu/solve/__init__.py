@@ -1,5 +1,5 @@
 """Solver layer (L5): block-structured KKT solves + on-device outer loops
-(SURVEY.md §1 L5, §2b: the TPU-native replacement for scipy/UMFPACK sparse
+(SURVEY.md §1 L5, §2b: the on-device replacement for scipy/UMFPACK sparse
 factorization and for IPOPT on inequality-constrained problems)."""
 
 from collocfem_tpu.solve.covariance import (

@@ -1,6 +1,6 @@
 """On-device augmented-Lagrangian + log-barrier solver for constrained OCPs.
 
-TPU-native replacement for the reference's IPOPT path (SURVEY.md §2b row 3,
+On-device replacement for the reference's IPOPT path (SURVEY.md §2b row 3,
 §3.3: interior-point NLP with Python callbacks every iteration).  Here the
 entire constrained solve is ONE jitted program: equality constraints
 (collocation defects, boundary conditions, per-node equality path
@@ -43,7 +43,7 @@ from collocfem_tpu.ops.assemble import (
     scatter_gn_blocks_soa,
 )
 from collocfem_tpu.problem import Decision
-from collocfem_tpu.solve.kkt import (resolve_auto_method,
+from collocfem_tpu.solve.kkt import (resolve_method,
                                      solve_kkt, solve_kkt_soa)
 from collocfem_tpu.solve.lm_core import LMAux, fused_quadforms, lm_loop
 
@@ -64,7 +64,7 @@ class ALBarrierOptions:
     # basin on nonconvex problems: rho0=10/mu0=1 let the swing-up fall
     # into an infeasible local minimizer of ||c||^2 (cviol 0.70) in f32 —
     # and only escaped it in f64 by luck of the inner iteration cap.
-    # Measured on the pendulum (v5e f32 AND cpu f64): rho0=100 + mu0=0.1
+    # Measured on the pendulum (f32 AND cpu f64): rho0=100 + mu0=0.1
     # reaches the global basin in both precisions (obj 2.5875,
     # cviol 3e-5 / 7e-11); rho0=1000 over-pulls feasibility and jams again.
     rho0: float = 100.0
@@ -81,10 +81,9 @@ class ALBarrierOptions:
     lam_max: float = 1e12
     ftb: float = 0.995        # fraction-to-boundary factor
     max_backtrack: int = 30
-    # 'auto' resolves at build time like solve.newton: single-kernel SPIKE
-    # SoA solve on TPU (the measured hot path — the per-level block-major
-    # CR pays a 16x (K, b, b) tile-padding tax), per-level CR elsewhere.
-    method: str = "auto"      # 'auto'|'spike'|'cr'|'cr_dw'|'scan'|...
+    # 'auto' resolves at build time like solve.newton, to 'cr' (here the
+    # block-major pipeline); only 'cr_dw' routes through the SoA pipeline.
+    method: str = "auto"      # 'auto'|'cr'|'cr_dw'|'scan'|...
 
 
 class OCPStats(NamedTuple):
@@ -132,15 +131,8 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
     (g(z0) < 0 at every node); use ``problem.initial_guess()``.
     """
     opt = options
-    if opt.method == "auto":
-        opt = dataclasses.replace(
-            opt, method=resolve_auto_method(
-                problem.mesh.num_blocks,
-                problem.mesh.degree * problem.nv,
-                1 + problem.model.nq,
-            )
-        )
-    soa = opt.method in ("spike", "cr_dw")
+    opt = dataclasses.replace(opt, method=resolve_method(opt.method))
+    soa = opt.method == "cr_dw"
     model, mesh = problem.model, problem.mesh
     n, d = mesh.num_elements, mesh.degree
     nv, nx, nq = problem.nv, model.nx, model.nq
@@ -395,7 +387,7 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
             if soa:
                 dx, dp, dmax = solve_kkt_soa(
                     sys, lam,
-                    dw=opt.method == "cr_dw", spike=opt.method == "spike",
+                    dw=opt.method == "cr_dw",
                     with_dmax=True,
                 )
                 dV = blocks_to_nodes_soa(dx, num_nodes, nv)

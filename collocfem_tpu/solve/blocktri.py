@@ -1,25 +1,19 @@
 """Symmetric positive-definite block-tridiagonal solvers.
 
-TPU-native replacement for the reference's UMFPACK/SuperLU sparse LU
-(SURVEY.md §2b row 1; BASELINE.json north_star: "Pallas cyclic-reduction
-block-tridiagonal LU instead of a scipy/UMFPACK sparse factorization").
-
-Three interchangeable algorithms, all pivot-free (the Gauss-Newton normal
-equations + Levenberg damping make every Schur complement SPD — SURVEY.md §7
-hard part 1):
+On-device replacement for the reference's UMFPACK/SuperLU sparse LU
+(SURVEY.md §2b row 1).  All algorithms are pivot-free (the Gauss-Newton
+normal equations + Levenberg damping make every Schur complement SPD —
+SURVEY.md §7 hard part 1) and plain jnp/lax, left to XLA to fuse:
 
   * ``blocktri_solve_scan``  — block-Cholesky Thomas recursion via
     ``lax.scan`` (O(K) sequential depth; reference implementation, and the
     in-shard local solver for the distributed SPIKE path).
   * ``blocktri_solve_cr``    — cyclic reduction: log2(K) levels, each level a
     *batched* Cholesky/triangular-solve over half the blocks (parallel depth
-    O(log K) — the TPU hot path; big levels run as fused Pallas kernels,
-    ``collocfem_tpu.ops.cr_pallas``).
-  * ``blocktri_cr_factor[_soa]`` — factor once / apply many (the SoA variant
-    is the zero-transpose hot path used by ``solve.kkt.solve_kkt_soa``).
+    O(log K)).
+  * ``blocktri_cr_factor[_soa]`` — factor once / apply many (the SoA
+    wrapper serves ``solve.kkt.solve_kkt_soa``).
   * ``blocktri_solve_dense`` — materialized dense solve (tests, tiny K).
-  * ``collocfem_tpu.ops.blocktri_pallas`` — separate fused batched Thomas
-    kernel for many short chains (the multi-experiment config).
 
 Convention: A[k,k] = D[k] (SPD, (K,b,b)); A[k,k+1] = E[k]; A[k+1,k] = E[k]^T,
 with E[K-1] ignored/zero.  Solves A X = G for G (K, b, r).
@@ -30,34 +24,31 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from collocfem_tpu.ops.einsum_hp import einsum_hp
 
-from collocfem_tpu.ops import smallblocks
-from collocfem_tpu.ops import smallblocks_soa as soa
-
-# Batched tiny-block primitives: unrolled over the (static, small) block
-# dimension so each factorization is pure fused VPU work over the K-batch
-# (collocfem_tpu.ops.smallblocks; SURVEY.md §7 hard part 1).
-_cholesky = smallblocks.chol
-_chol_solve = smallblocks.chol_solve
-
-# Minimum chain length for which a CR level runs as a Pallas kernel on TPU.
-# Every level above the tiny sequential tail is cheaper as ONE fused Mosaic
-# program than as the XLA lowering's hundreds of small elementwise kernels:
-# measured on v5e at the N=10k KKT shape (K padded to 16384, b=8, 3 RHS),
-# factor+apply went 6.6 ms (pallas_min=2048) -> 2.5 ms (pallas_min=16,
-# tail=8), vs 37 ms with no Pallas at all.  The sequential Thomas tail costs
-# ~90 us per block step, so it is kept minimal.
-_PALLAS_MIN = 16
+# Batched tiny-block primitives as library calls (LAPACK on CPU,
+# cuSOLVER/cuBLAS on the GPU): a handful of HLO ops per call, so the
+# compiled program stays small whatever the block size.
+def _cholesky(A):
+    """Lower Cholesky factor of a batch of SPD blocks (..., b, b)."""
+    return jnp.linalg.cholesky(A)
 
 
-def _mm(a, b):
-    return einsum_hp("...ij,...jk->...ik", a, b, preferred_element_type=a.dtype)
+def _chol_solve(L, B):
+    """Solve (L L^T) X = B for a batch: L (..., b, b), B (..., b, r)."""
+    tri = jax.lax.linalg.triangular_solve
+    y = tri(L, B, left_side=True, lower=True)
+    return tri(L, y, left_side=True, lower=True, transpose_a=True)
 
 
-def _mtm(a, b):
-    """a^T @ b batched."""
-    return einsum_hp("...ji,...jk->...ik", a, b, preferred_element_type=a.dtype)
+def _bmm(a, b):
+    """a @ b over a batch of tiny blocks, as an exact f32 multiply-reduce
+    (no matrix unit, so no reduced-precision TF32 path)."""
+    return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
+
+
+def _btm(a, b):
+    """a^T @ b over a batch of tiny blocks (multiply-reduce)."""
+    return jnp.sum(a[..., :, :, None] * b[..., :, None, :], axis=-3)
 
 
 # ---------------------------------------------------------------------------
@@ -93,8 +84,8 @@ def blocktri_solve_scan(D, E, G):
         l_prev, y_prev = carry
         d_i, e_prev, g_i = inp
         w = _chol_solve(l_prev, e_prev)          # U_{i-1}^{-1} E_{i-1}
-        u_i = d_i - _mtm(e_prev, w)              # D_i - E^T U^{-1} E
-        y_i = g_i - _mtm(w, y_prev)              # g_i - (U^{-1}E)^T y_{i-1}
+        u_i = d_i - _btm(e_prev, w)              # D_i - E^T U^{-1} E
+        y_i = g_i - _btm(w, y_prev)              # g_i - (U^{-1}E)^T y_{i-1}
         l_i = _cholesky(u_i)
         return (l_i, y_i), (l_i, y_i)
 
@@ -106,7 +97,7 @@ def blocktri_solve_scan(D, E, G):
 
     def bwd(x_next, inp):
         l_i, y_i, e_i = inp
-        x_i = _chol_solve(l_i, y_i - _mm(e_i, x_next))
+        x_i = _chol_solve(l_i, y_i - _bmm(e_i, x_next))
         return x_i, x_i
 
     _, xs = jax.lax.scan(
@@ -151,7 +142,7 @@ def blocktri_inverse_blocks(D, E):
         l_k = _cholesky(s_carry)
         w_k = _chol_solve(l_k, e_k)
         sinv_k = _chol_solve(l_k, eye)
-        s_next = d_next - _mtm(e_k, w_k)
+        s_next = d_next - _btm(e_k, w_k)
         return s_next, (sinv_k, w_k)
 
     s_last, (sinvs, ws) = jax.lax.scan(fwd, D[0], (D[1:], E[:-1]))
@@ -159,8 +150,8 @@ def blocktri_inverse_blocks(D, E):
 
     def bwd(sigma_next, inp):
         sinv_k, w_k = inp
-        off_k = -_mm(w_k, sigma_next)
-        sigma_k = sinv_k - _mm(w_k, off_k.swapaxes(-1, -2))
+        off_k = -_bmm(w_k, sigma_next)
+        sigma_k = sinv_k - _bmm(w_k, off_k.swapaxes(-1, -2))
         return sigma_k, (sigma_k, off_k)
 
     _, (sigmas, offs) = jax.lax.scan(
@@ -173,468 +164,99 @@ def blocktri_inverse_blocks(D, E):
 # ---------------------------------------------------------------------------
 # Cyclic reduction: O(log K) parallel depth
 # ---------------------------------------------------------------------------
-def _pad_pow2(D, E, G):
+def _pad_pow2(D, E):
+    """Pad the chain to a power of two with identity/zero-coupled blocks."""
     k, b, _ = D.shape
     kp = 1 << max(0, (k - 1).bit_length())
     if kp == k:
-        return D, E, G
+        return D, E
     eye = jnp.broadcast_to(jnp.eye(b, dtype=D.dtype), (kp - k, b, b))
     D = jnp.concatenate([D, eye])
     # E[k-1] is ignored by convention but becomes an INTERIOR coupling
     # after padding — zero it so the pad blocks stay decoupled.
     E = E.at[k - 1].set(0.0)
     E = jnp.concatenate([E, jnp.zeros((kp - k, b, b), D.dtype)])
-    G = jnp.concatenate([G, jnp.zeros((kp - k,) + G.shape[1:], D.dtype)])
-    return D, E, G
+    return D, E
 
 
-def blocktri_solve_cr_unrolled(D, E, G):
-    """Cyclic reduction with Python-unrolled levels (distinct shapes).
+def blocktri_cr_factor(D, E):
+    """Pivot-free SPD block cyclic reduction: factor once, apply many.
 
-    Reference implementation for :func:`blocktri_solve_cr`: identical math,
-    but every one of the log2(K) levels is traced at its own (halved) shape,
-    which makes XLA:TPU compile time explode at large K.  Kept for testing
-    and small-K use.
+    Returns ``apply(G) -> X`` solving A X = G on (K, b, r) (or (K, b))
+    arrays.  Each level eliminates the odd-indexed blocks with one batched
+    Cholesky + triangular solves, halving the active chain (log2(K)
+    levels after padding K to a power of two with identity blocks — an
+    exact fixed point of the update).  The even-odd permutation of an SPD
+    block-tridiagonal matrix stays SPD at every level, so no pivoting is
+    needed (SURVEY.md §7 hard part 1).  Back-substitution uses the stored
+    Schur factors, x_odd = s_g - s_up x_even - s_lo x_right (no re-solve).
+
+    Levels are Python-unrolled at their true (halving) shapes: O(K) work
+    in total, and every level is a few batched library calls and fused
+    multiply-reduces, so the traced program stays small.
     """
-    squeeze = G.ndim == 2
-    if squeeze:
-        G = G[..., None]
     k0 = D.shape[0]
-    D, E, G = _pad_pow2(D, E, G)
-    k = D.shape[0]
-
-    stack = []
-    while k > 1:
-        d_odd, g_odd = D[1::2], G[1::2]
+    D, E = _pad_pow2(D, E)
+    kp = D.shape[0]
+    levels = []
+    while D.shape[0] > 1:
+        d_even, d_odd = D[0::2], D[1::2]
         e_up, e_lo = E[0::2], E[1::2]           # even->odd, odd->next even
         l_odd = _cholesky(d_odd)
-        s_up = _chol_solve(l_odd, jnp.swapaxes(e_up, -1, -2))  # Dodd^{-1} Eup^T
-        s_lo = _chol_solve(l_odd, e_lo)                         # Dodd^{-1} Elo
-        s_g = _chol_solve(l_odd, g_odd)                         # Dodd^{-1} g_odd
-
-        d_new = D[0::2] - _mm(e_up, s_up)
-        d_new = d_new.at[1:].add(-_mtm(e_lo, s_lo)[:-1])
-        g_new = G[0::2] - _mm(e_up, s_g)
-        g_new = g_new.at[1:].add(-_mtm(e_lo, s_g)[:-1])
-        e_new = -_mm(e_up, s_lo)                # even i -> even i+1
-
-        stack.append((l_odd, e_up, e_lo, g_odd))
-        D, E, G = d_new, e_new, g_new
-        k //= 2
-
-    x = _chol_solve(_cholesky(D[0]), G[0])[None]
-
-    for l_odd, e_up, e_lo, g_odd in reversed(stack):
-        x_right = jnp.concatenate([x[1:], jnp.zeros_like(x[:1])])
-        rhs = g_odd - _mtm(e_up, x) - _mm(e_lo, x_right)
-        x_odd = _chol_solve(l_odd, rhs)
-        x = jnp.stack([x, x_odd], axis=1).reshape(
-            (2 * x.shape[0],) + x.shape[1:]
-        )
-
-    x = x[:k0]
-    return x[..., 0] if squeeze else x
-
-
-def _soa_split(A):
-    """(b, c, K) -> even/odd (b, c, K/2): contiguous pair reshape."""
-    half = A.shape[-1] // 2
-    A5 = A.reshape(A.shape[0], A.shape[1], half, 2)
-    return A5[..., 0], A5[..., 1]
-
-
-def _cr_level_factor_soa(Ds, Es):
-    """G-independent half of one SoA CR level: eliminate, halve, factorize.
-
-    Returns ((d_new, e_new), level_factors) where level_factors =
-    (l_odd, e_up, e_lo, s_up, s_lo) is everything a later RHS sweep needs.
-    """
-    d_even, d_odd = _soa_split(Ds)
-    e_up, e_lo = _soa_split(Es)
-    l_odd = soa.chol(d_odd)
-    s_up = soa.chol_solve(l_odd, soa.transpose(e_up))
-    s_lo = soa.chol_solve(l_odd, e_lo)
-
-    d_new = d_even - soa.mm(e_up, s_up)
-    d_new = d_new.at[..., 1:].add(-soa.mtm(e_lo, s_lo)[..., :-1])
-    e_new = -soa.mm(e_up, s_lo)
-    return (d_new, e_new), (l_odd, e_up, e_lo, s_up, s_lo)
-
-
-def _cr_level_apply_soa(fac, Gs):
-    """RHS half of one SoA CR level: reduce G using stored factors.
-
-    Returns (g_new, s_g); s_g joins (s_up, s_lo) for back-substitution.
-    """
-    l_odd, e_up, e_lo, _, _ = fac
-    g_even, g_odd = _soa_split(Gs)
-    s_g = soa.chol_solve(l_odd, g_odd)
-    g_new = g_even - soa.mm(e_up, s_g)
-    g_new = g_new.at[..., 1:].add(-soa.mtm(e_lo, s_g)[..., :-1])
-    return g_new, s_g
-
-
-def _cr_level_soa(Ds, Es, Gs):
-    """One fused SoA CR level (factor + RHS sweep in one pass)."""
-    (d_new, e_new), fac = _cr_level_factor_soa(Ds, Es)
-    g_new, s_g = _cr_level_apply_soa(fac, Gs)
-    _, _, _, s_up, s_lo = fac
-    return (d_new, e_new, g_new), (s_up, s_lo, s_g)
-
-
-def _cr_backsub_soa(x_even, s_up, s_lo, s_g):
-    """Recover the odd blocks and interleave: (b, r, K/2) -> (b, r, K).
-
-    x_odd = D_odd^{-1}(g - e_up^T x_even - e_lo x_right) expressed through
-    the stored Schur factors — no solve in the backward sweep.
-    """
-    b, r, half = x_even.shape
-    x_right = jnp.concatenate(
-        [x_even[..., 1:], jnp.zeros_like(x_even[..., :1])], axis=-1
-    )
-    x_odd = s_g - soa.mm(s_up, x_even) - soa.mm(s_lo, x_right)
-    return jnp.stack([x_even, x_odd], axis=-1).reshape(b, r, 2 * half)
-
-
-def blocktri_solve_cr(D, E, G, *, unroll: int = 3, tail: int = 8,
-                      pallas: bool | None = None,
-                      pallas_min: int = _PALLAS_MIN):
-    """Pivot-free SPD block cyclic reduction, fixed-shape / SoA / single-trace.
-
-    Each level eliminates the odd-indexed blocks in one *batched* Cholesky +
-    triangular solves, halving the active chain; back-substitution retraces
-    the levels.  The even-odd permutation of an SPD block-tridiagonal matrix
-    stays SPD at every level, so no pivoting is needed (SURVEY.md §7 hard
-    part 1).
-
-    TPU-first design, both measured on v5e:
-
-      * **Fixed shapes / single trace**: active blocks always live in a
-        contiguous prefix of full-size buffers whose tail is padded with
-        identity diagonal / zero coupling — an exact fixed point of the CR
-        update — so every level runs the SAME static-shape computation and
-        the whole sweep is two ``lax.fori_loop``s traced ONCE (the
-        Python-unrolled variant blows up XLA:TPU compile time at K ~ 10^4).
-        Runtime does O(K log K) work instead of O(K) — a non-issue for this
-        bandwidth-bound sweep.
-      * **SoA layout** (ops.smallblocks_soa): blocks are held as
-        (b, b, K) with the chain on the vector lanes; the even/odd split is
-        a contiguous pair reshape and every unrolled block-algebra op is a
-        full-width elementwise op.  The block-major (K, b, b) form wastes
-        ~(128/b) of each tile and its strided chain slices cost ~4x more
-        per K-doubling in-loop.
-      * Back-substitution uses the stored Schur factors
-        x_odd = s_g - s_up x_even - s_lo x_right (no re-solve).
-      * **Hybrid level schedule**: the top ``unroll`` levels are
-        Python-unrolled at genuinely halving shapes (they hold most of the
-        O(K) work), the middle levels run the fixed-shape fori (compile
-        O(1) in K), and chains of <= ``tail`` blocks finish with the
-        sequential block-Thomas scan — cutting total work from
-        levels x O(K) to ~3 x O(K) without the unrolled-everything
-        compile-time blowup.
-    """
-    squeeze = G.ndim == 2
-    if squeeze:
-        G = G[..., None]
-    k0, b, _ = D.shape
-    r = G.shape[-1]
-    D, E, G = _pad_pow2(D, E, G)
-    k = D.shape[0]
-    if k == 1:
-        x = _chol_solve(_cholesky(D[0]), G[0])[None][:k0]
-        return x[..., 0] if squeeze else x
-    dtype = D.dtype
-    vary0 = jnp.zeros((), dtype) * D.reshape(-1)[0]
-
-    Ds, Es, Gs = soa.from_aos(D), soa.from_aos(E), soa.from_aos(G)
-
-    # -- stage 0 (TPU): big levels as fused Pallas programs -------------------
-    # One forward + one backward Mosaic kernel per level: the XLA lowering
-    # of a level is hundreds of small elementwise kernels whose dispatch
-    # overhead dominates inside solver loops.  Levels below _PALLAS_MIN are
-    # cheap either way and stay on the XLA path to bound Mosaic compiles.
-    if pallas is None:
-        # Mosaic has no f64: emulated-x64 runs stay on the XLA CR path.
-        pallas = (jax.default_backend() == "tpu" and k >= pallas_min
-                  and dtype != jnp.float64)
-    pl_stack = []
-    if pallas:
-        from collocfem_tpu.ops import cr_pallas
-
-        while Ds.shape[-1] >= pallas_min and Ds.shape[-1] > tail:
-            (Ds, Es, Gs), fac = cr_pallas.cr_level(Ds, Es, Gs)
-            pl_stack.append(fac)
-
-    # -- stage 1: python-unrolled top levels (shapes truly halve) ------------
-    static_stack = []
-    while Ds.shape[-1] > tail and len(static_stack) < unroll:
-        (Ds, Es, Gs), fac = _cr_level_soa(Ds, Es, Gs)
-        static_stack.append(fac)
-    k2 = Ds.shape[-1]
-
-    if k2 > tail:
-        # -- stage 2: fixed-shape fori at size k2 down to `tail` actives ----
-        levels = (k2 // tail).bit_length() - 1
-        half = k2 // 2
-        eye = jnp.broadcast_to(
-            jnp.eye(b, dtype=dtype)[:, :, None], (b, b, half)
-        )
-
-        def fwd(l, carry):
-            Ds, Es, Gs, st_su, st_sl, st_sg = carry
-            (d_new, e_new, g_new), (s_up, s_lo, s_g) = _cr_level_soa(
-                Ds, Es, Gs
-            )
-            st_su = jax.lax.dynamic_update_index_in_dim(st_su, s_up, l, 0)
-            st_sl = jax.lax.dynamic_update_index_in_dim(st_sl, s_lo, l, 0)
-            st_sg = jax.lax.dynamic_update_index_in_dim(st_sg, s_g, l, 0)
-            # Re-pad to k2: the eliminated tail becomes identity/zero — an
-            # exact fixed point of the next level's update.
-            Ds = jnp.concatenate([d_new, eye], axis=-1)
-            Es = jnp.concatenate(
-                [e_new, jnp.zeros((b, b, half), dtype)], axis=-1
-            )
-            Gs = jnp.concatenate(
-                [g_new, jnp.zeros((b, r, half), dtype)], axis=-1
-            )
-            return Ds, Es, Gs, st_su, st_sl, st_sg
-
-        # vary0 ties the stack initializers to D's varying manual axes
-        # (shard_map's fori carry check rejects plain unvarying zeros).
-        stacks = (
-            jnp.zeros((levels, b, b, half), dtype) + vary0,
-            jnp.zeros((levels, b, b, half), dtype) + vary0,
-            jnp.zeros((levels, b, r, half), dtype) + vary0,
-        )
-        Ds, Es, Gs, st_su, st_sl, st_sg = jax.lax.fori_loop(
-            0, levels, fwd, (Ds, Es, Gs) + stacks
-        )
-
-        # -- stage 3: sequential Thomas on the `tail`-block active prefix ---
-        x_tail = blocktri_solve_scan(
-            soa.to_aos(Ds[..., :tail]),
-            soa.to_aos(Es[..., :tail]),
-            soa.to_aos(Gs[..., :tail]),
-        )
-        X = jnp.concatenate(
-            [soa.from_aos(x_tail),
-             jnp.zeros((b, r, k2 - tail), dtype) + vary0],
-            axis=-1,
-        )
-
-        def bwd(i, X):
-            l = levels - 1 - i
-            s_up = jax.lax.dynamic_index_in_dim(st_su, l, 0, keepdims=False)
-            s_lo = jax.lax.dynamic_index_in_dim(st_sl, l, 0, keepdims=False)
-            s_g = jax.lax.dynamic_index_in_dim(st_sg, l, 0, keepdims=False)
-            return _cr_backsub_soa(X[..., :half], s_up, s_lo, s_g)
-
-        X = jax.lax.fori_loop(0, levels, bwd, X)
-    else:
-        # Small chain: straight to the sequential Thomas solve.
-        X = soa.from_aos(blocktri_solve_scan(
-            soa.to_aos(Ds), soa.to_aos(Es), soa.to_aos(Gs)
-        ))
-
-    # -- stage 1 back-substitution (reverse order, shapes re-double) ---------
-    for s_up, s_lo, s_g in reversed(static_stack):
-        X = _cr_backsub_soa(X, s_up, s_lo, s_g)
-
-    # -- stage 0 back-substitution (Pallas levels, outermost) ----------------
-    if pl_stack:
-        from collocfem_tpu.ops import cr_pallas
-
-        for s_up, s_lo, s_g in reversed(pl_stack):
-            X = cr_pallas.cr_backsub(X, s_up, s_lo, s_g)
-
-    X = soa.to_aos(X)[:k0]
-    return X[..., 0] if squeeze else X
-
-
-def _pad_pow2_soa(Ds, Es, k0):
-    """Pad SoA (b, b, K) system to a power-of-two chain with identity/zero."""
-    b = Ds.shape[0]
-    kp = 1 << max(0, (k0 - 1).bit_length())
-    if kp == k0:
-        return Ds, Es, k0
-    dtype = Ds.dtype
-    eye = jnp.broadcast_to(
-        jnp.eye(b, dtype=dtype)[:, :, None], (b, b, kp - k0)
-    )
-    Ds = jnp.concatenate([Ds, eye], axis=-1)
-    Es = Es.at[:, :, k0 - 1].set(0.0)
-    Es = jnp.concatenate(
-        [Es, jnp.zeros((b, b, kp - k0), dtype)], axis=-1
-    )
-    return Ds, Es, kp
-
-
-def blocktri_cr_factor_soa(Ds, Es, *, unroll: int = 3, tail: int = 8,
-                           pallas: bool | None = None,
-                           pallas_min: int = _PALLAS_MIN):
-    """SoA-native factor/apply: like :func:`blocktri_cr_factor` but takes
-    (b, b, K) inputs and returns ``apply(Gs (b, r, K)) -> X (b, r, K)`` with
-    no layout conversions anywhere (the block-major <-> SoA transposes cost
-    more than the factorization itself at K ~ 10^4 on TPU)."""
-    b = Ds.shape[0]
-    k0 = Ds.shape[-1]
-    dtype = Ds.dtype
-    Ds, Es, k = _pad_pow2_soa(Ds, Es, k0)
-    vary0 = jnp.zeros((), dtype) * Ds.reshape(-1)[0]
-
-    if pallas is None:
-        # Mosaic has no f64: emulated-x64 runs stay on the XLA CR path.
-        pallas = (jax.default_backend() == "tpu" and k >= pallas_min
-                  and dtype != jnp.float64)
-    if pallas:
-        from collocfem_tpu.ops import cr_pallas
-
-    pl_facs = []
-    while pallas and Ds.shape[-1] >= pallas_min and Ds.shape[-1] > tail:
-        (Ds, Es), fac = cr_pallas.cr_level_factor(Ds, Es)
-        pl_facs.append(fac)
-
-    st_facs = []
-    while Ds.shape[-1] > tail and len(st_facs) < unroll:
-        (Ds, Es), fac = _cr_level_factor_soa(Ds, Es)
-        st_facs.append(fac)
-    k2 = Ds.shape[-1]
-
-    fori_levels = 0
-    fori_stacks = None
-    if k2 > tail:
-        fori_levels = (k2 // tail).bit_length() - 1
-        half = k2 // 2
-        eye = jnp.broadcast_to(
-            jnp.eye(b, dtype=dtype)[:, :, None], (b, b, half)
-        )
-
-        def ffwd(l, carry):
-            Ds, Es, s_lo_, s_eu, s_el, s_su, s_sl = carry
-            (d_new, e_new), (lo, eu, el, su, sl) = _cr_level_factor_soa(
-                Ds, Es
-            )
-            upd = jax.lax.dynamic_update_index_in_dim
-            s_lo_ = upd(s_lo_, lo, l, 0)
-            s_eu = upd(s_eu, eu, l, 0)
-            s_el = upd(s_el, el, l, 0)
-            s_su = upd(s_su, su, l, 0)
-            s_sl = upd(s_sl, sl, l, 0)
-            Ds = jnp.concatenate([d_new, eye], axis=-1)
-            Es = jnp.concatenate(
-                [e_new, jnp.zeros((b, b, half), dtype)], axis=-1
-            )
-            return Ds, Es, s_lo_, s_eu, s_el, s_su, s_sl
-
-        zstack = lambda: jnp.zeros((fori_levels, b, b, half), dtype) + vary0
-        Ds, Es, *fori_stacks = jax.lax.fori_loop(
-            0, fori_levels, ffwd,
-            (Ds, Es, zstack(), zstack(), zstack(), zstack(), zstack()),
-        )
-
-    tail_n = min(tail, Ds.shape[-1])
-    D_t = soa.to_aos(Ds[..., :tail_n])
-    E_t = soa.to_aos(Es[..., :tail_n])
-
-    def apply(Gs):
-        r = Gs.shape[1]
-        if Gs.shape[-1] < k:
-            Gs = jnp.concatenate(
-                [Gs, jnp.zeros((b, r, k - Gs.shape[-1]), dtype)], axis=-1
-            )
-        pl_sgs = []
-        for fac in pl_facs:
-            Gs, s_g = cr_pallas.cr_level_apply(fac, Gs)
-            pl_sgs.append(s_g)
-        st_sgs = []
-        for fac in st_facs:
-            Gs, s_g = _cr_level_apply_soa(fac, Gs)
-            st_sgs.append(s_g)
-
-        if fori_levels:
-            half = k2 // 2
-            s_lo_, s_eu, s_el, s_su, s_sl = fori_stacks
-            idx = jax.lax.dynamic_index_in_dim
-
-            def fapp(l, carry):
-                Gs, st_sg = carry
-                fac = (
-                    idx(s_lo_, l, 0, keepdims=False),
-                    idx(s_eu, l, 0, keepdims=False),
-                    idx(s_el, l, 0, keepdims=False),
-                    None, None,
-                )
-                g_new, s_g = _cr_level_apply_soa(fac, Gs)
-                st_sg = jax.lax.dynamic_update_index_in_dim(
-                    st_sg, s_g, l, 0
-                )
-                Gs = jnp.concatenate(
-                    [g_new, jnp.zeros((b, r, half), dtype)], axis=-1
-                )
-                return Gs, st_sg
-
-            st_sg0 = jnp.zeros((fori_levels, b, r, half), dtype) + vary0
-            Gs, st_sg = jax.lax.fori_loop(
-                0, fori_levels, fapp, (Gs, st_sg0)
-            )
-
-        X = soa.from_aos(blocktri_solve_scan(
-            D_t, E_t, soa.to_aos(Gs[..., :tail_n])
-        ))
-
-        if fori_levels:
-            def fbwd(i, X):
-                l = fori_levels - 1 - i
-                s_up = idx(s_su, l, 0, keepdims=False)
-                s_lo2 = idx(s_sl, l, 0, keepdims=False)
-                s_g = idx(st_sg, l, 0, keepdims=False)
-                return _cr_backsub_soa(X[..., :half], s_up, s_lo2, s_g)
-
-            X = jnp.concatenate(
-                [X, jnp.zeros((b, r, k2 - tail_n), dtype) + vary0],
-                axis=-1,
-            )
-            X = jax.lax.fori_loop(0, fori_levels, fbwd, X)
-        for fac, s_g in zip(reversed(st_facs), reversed(st_sgs)):
-            _, _, _, s_up, s_lo2 = fac
-            X = _cr_backsub_soa(X, s_up, s_lo2, s_g)
-        for fac, s_g in zip(reversed(pl_facs), reversed(pl_sgs)):
-            X = cr_pallas.cr_backsub_rows(X, fac, s_g)
-        return X[..., :k0]
-
-    return apply
-
-
-def blocktri_cr_factor(D, E, *, unroll: int = 3, tail: int = 8,
-                       pallas: bool | None = None,
-                       pallas_min: int = _PALLAS_MIN):
-    """Block-major wrapper around :func:`blocktri_cr_factor_soa`.
-
-    Factorize once, solve many: returns ``apply(G) -> X`` on (K, b, ·)
-    arrays.  Prefer the SoA variant in hot paths — these boundary
-    transposes are the expensive part at K ~ 10^4.
-    """
-    apply_soa = blocktri_cr_factor_soa(
-        soa.from_aos(D), soa.from_aos(E),
-        unroll=unroll, tail=tail, pallas=pallas, pallas_min=pallas_min,
-    )
+        s_up = _chol_solve(l_odd, jnp.swapaxes(e_up, -1, -2))  # Dodd^-1 Eup^T
+        s_lo = _chol_solve(l_odd, e_lo)                         # Dodd^-1 Elo
+        D = d_even - _bmm(e_up, s_up)
+        D = D.at[1:].add(-_btm(e_lo, s_lo)[:-1])
+        E = -_bmm(e_up, s_lo)                                   # even i -> i+1
+        levels.append((l_odd, e_up, e_lo, s_up, s_lo))
+    l_root = _cholesky(D[0])
 
     def apply(G):
         squeeze = G.ndim == 2
         if squeeze:
             G = G[..., None]
-        X = soa.to_aos(apply_soa(soa.from_aos(G)))
+        G = jnp.concatenate(
+            [G, jnp.zeros((kp - k0,) + G.shape[1:], G.dtype)])
+        s_gs = []
+        for l_odd, e_up, e_lo, _, _ in levels:
+            g_even, g_odd = G[0::2], G[1::2]
+            s_g = _chol_solve(l_odd, g_odd)
+            G = g_even - _bmm(e_up, s_g)
+            G = G.at[1:].add(-_btm(e_lo, s_g)[:-1])
+            s_gs.append(s_g)
+        X = _chol_solve(l_root, G[0])[None]
+        for (_, _, _, s_up, s_lo), s_g in zip(reversed(levels),
+                                              reversed(s_gs)):
+            x_right = jnp.concatenate([X[1:], jnp.zeros_like(X[:1])])
+            x_odd = s_g - _bmm(s_up, X) - _bmm(s_lo, x_right)
+            X = jnp.stack([X, x_odd], axis=1).reshape(
+                (2 * X.shape[0],) + X.shape[1:])
+        X = X[:k0]
         return X[..., 0] if squeeze else X
 
     return apply
 
 
+def blocktri_solve_cr(D, E, G):
+    """One-shot cyclic reduction: :func:`blocktri_cr_factor` applied once."""
+    return blocktri_cr_factor(D, E)(G)
+
+
+def blocktri_cr_factor_soa(Ds, Es):
+    """Structure-of-arrays wrapper around :func:`blocktri_cr_factor`: takes
+    (b, b, K) inputs and returns ``apply(Gs (b, r, K)) -> X (b, r, K)``,
+    the layout the SoA assembly and ``solve.kkt.solve_kkt_soa`` use."""
+    apply = blocktri_cr_factor(jnp.moveaxis(Ds, -1, 0),
+                               jnp.moveaxis(Es, -1, 0))
+    return lambda Gs: jnp.moveaxis(apply(jnp.moveaxis(Gs, -1, 0)), 0, -1)
+
+
 from collocfem_tpu.solve.blocktri_dw import blocktri_solve_cr_dw  # noqa: E402
+
 
 SOLVERS = {
     "cr": blocktri_solve_cr,
     "cr_dw": blocktri_solve_cr_dw,
-    "cr_unrolled": blocktri_solve_cr_unrolled,
     "scan": blocktri_solve_scan,
     "dense": blocktri_solve_dense,
 }

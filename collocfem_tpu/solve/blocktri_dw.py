@@ -6,18 +6,16 @@ shape ``fori_loop`` middle -> sequential Thomas tail), with every scalar
 operation in ~48-bit double-word f32 arithmetic (ops.doubleword /
 ops.smallblocks_dw).  Purpose (SURVEY.md §7 hard part 4): the equilibrated
 collocation chain has cond ~ K^2, which crosses f32's workable range at
-K ~ 1e4 elements — single-shot fine-mesh f32 factorizations stall there,
-and XLA:TPU's emulated f64 compiles prohibitively slowly (measured on
-v5e: the N=200 VdP GN graph took 1424 s to compile — ~7x the f32 compile
-— for a 4.4x slower steady-state step).  DW cyclic reduction runs
-entirely on native f32 VPU ops, keeps the chain on the vector lanes, and
-extends the workable conditioning to cond * 2^-49 < 1, i.e. K ~ 1e7.
+K ~ 1e4 elements — single-shot fine-mesh f32 factorizations stall there.
+DW cyclic reduction runs entirely on f32 elementwise ops, keeps the chain
+on the minor axis, and extends the workable conditioning to
+cond * 2^-49 < 1, i.e. K ~ 1e7.
 
 Cost: a DW op is ~10-20 f32 elementwise ops, so expect roughly an order
-of magnitude over the plain-f32 sweep — still far ahead of both the CPU
-baseline and emulated f64, and only needed when single-shot fine-mesh
-accuracy is required (the f32 + multilevel-warm-start ladder remains the
-fast path).
+of magnitude over the plain-f32 sweep; it is only needed when single-shot
+fine-mesh accuracy is required in f32 (the f32 + multilevel-warm-start
+ladder remains the fast path).  Native float64 is the alternative where
+the device runs it at speed.
 
 In/out is plain f32; widening/rounding happens at the boundary.
 """

@@ -4,7 +4,7 @@ Capability parity target: the reference lineage hands estimation problems
 with simple variable bounds (lb <= z <= ub — e.g. positivity of physical
 parameters, state envelopes) to IPOPT, which enforces them with a primal
 log-barrier interior point (SURVEY.md §2b row 3, §2a "Inequality
-handling").  The TPU-native equivalent here keeps the entire bounded solve
+handling").  The on-device equivalent here keeps the entire bounded solve
 as ONE jitted program, mirroring solve/auglag.py's OCP structure:
 
   outer o = 1..n_outer (lax.fori_loop):
@@ -45,7 +45,7 @@ from collocfem_tpu.ops.assemble import (
 )
 from collocfem_tpu.problem import Decision
 from collocfem_tpu.solve.auglag import _node_block_scatter
-from collocfem_tpu.solve.kkt import (resolve_auto_method,
+from collocfem_tpu.solve.kkt import (resolve_method,
                                      solve_kkt, solve_kkt_soa)
 from collocfem_tpu.solve.lm_core import LMAux, fused_quadforms, lm_loop
 
@@ -129,10 +129,9 @@ class BoundedOptions:
     lam_min: float = 1e-14
     lam_max: float = 1e12
     ftb: float = 0.995        # fraction-to-boundary factor
-    # 'auto' resolves at build time like solve.newton: the single-kernel
-    # SPIKE SoA solve on TPU (the measured hot path), per-level CR
-    # elsewhere.  'spike'/'cr_dw' route through the SoA pipeline.
-    method: str = "auto"      # 'auto'|'spike'|'cr'|'cr_dw'|'scan'|...
+    # 'auto' resolves at build time like solve.newton, to 'cr' (here the
+    # block-major pipeline); only 'cr_dw' routes through the SoA pipeline.
+    method: str = "auto"      # 'auto'|'cr'|'cr_dw'|'scan'|...
 
 
 class BoundedStats(NamedTuple):
@@ -152,15 +151,8 @@ def make_bounded_solver(
     inactive-bound problems reproduce the unconstrained GN solution.
     """
     opt = options
-    if opt.method == "auto":
-        opt = dataclasses.replace(
-            opt, method=resolve_auto_method(
-                problem.mesh.num_blocks,
-                problem.mesh.degree * problem.nv,
-                1 + problem.model.nq,
-            )
-        )
-    soa = opt.method in ("spike", "cr_dw")
+    opt = dataclasses.replace(opt, method=resolve_method(opt.method))
+    soa = opt.method == "cr_dw"
     dtype = problem.dtype
     nx = problem.model.nx
     nq = problem.model.nq
@@ -305,7 +297,7 @@ def make_bounded_solver(
             if soa:
                 dx, dp = solve_kkt_soa(
                     sys, lam,
-                    dw=opt.method == "cr_dw", spike=opt.method == "spike",
+                    dw=opt.method == "cr_dw",
                     damp_scale=dmax,
                 )
                 dV = blocks_to_nodes_soa(dx, num_nodes, nv)

@@ -50,7 +50,7 @@ from collocfem_tpu.ops.assemble import (
 from collocfem_tpu.ops.einsum_hp import einsum_hp
 from collocfem_tpu.problem import Decision
 from collocfem_tpu.solve.auglag import _barrier_value, _node_block_scatter
-from collocfem_tpu.solve.kkt import (resolve_auto_method,
+from collocfem_tpu.solve.kkt import (resolve_method,
                                      solve_kkt, solve_kkt_soa)
 from collocfem_tpu.solve.lm_core import LMAux, fused_quadforms, lm_loop
 
@@ -72,7 +72,7 @@ class ConstrainedOptions:
     lam_max: float = 1e12
     ftb: float = 0.995        # fraction-to-boundary factor
     max_backtrack: int = 30   # feasibility-restoring halvings per step
-    method: str = "auto"      # 'auto'|'spike'|'cr'|'cr_dw'|'scan'|...
+    method: str = "auto"      # 'auto'|'cr'|'cr_dw'|'scan'|...
 
 
 class ConstrainedStats(NamedTuple):
@@ -132,15 +132,8 @@ def make_constrained_solver(
     inactive-constraint problems reproduce the unconstrained GN solution.
     """
     opt = options
-    if opt.method == "auto":
-        opt = dataclasses.replace(
-            opt, method=resolve_auto_method(
-                problem.mesh.num_blocks,
-                problem.mesh.degree * problem.nv,
-                1 + problem.model.nq,
-            )
-        )
-    soa = opt.method in ("spike", "cr_dw")
+    opt = dataclasses.replace(opt, method=resolve_method(opt.method))
+    soa = opt.method == "cr_dw"
     model, mesh = problem.model, problem.mesh
     d = mesh.degree
     nx, nq, nv = model.nx, model.nq, problem.nv
@@ -315,7 +308,7 @@ def make_constrained_solver(
             if soa:
                 dx, dp = solve_kkt_soa(
                     sys, lam,
-                    dw=opt.method == "cr_dw", spike=opt.method == "spike",
+                    dw=opt.method == "cr_dw",
                     damp_scale=dmax,
                 )
                 dV = blocks_to_nodes_soa(dx, num_nodes, nv)

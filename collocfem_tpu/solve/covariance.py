@@ -38,7 +38,7 @@ def parameter_covariance(problem, z, data, method: str = "cr"):
     solver = SOLVERS[method]
     a_b = solver(sys.D, sys.E, sys.B)               # A^{-1} B
     schur = sys.C - einsum_hp("kbq,kbr->qr", sys.B, a_b)
-    # SPD inverse via the unrolled Cholesky (f64-capable on TPU).
+    # SPD inverse via the unrolled Cholesky (ops.smallblocks).
     eye = jnp.eye(schur.shape[0], dtype=schur.dtype)
     return spd_solve(schur, eye)
 

@@ -9,6 +9,7 @@ global sparse factorization of the bordered system (SURVEY.md §2b).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from collocfem_tpu.ops.einsum_hp import einsum_hp
@@ -18,33 +19,35 @@ from collocfem_tpu.ops.smallblocks import spd_solve
 from collocfem_tpu.solve.blocktri import SOLVERS
 
 
-def resolve_auto_method(num_blocks: int, block_size: int = 8,
-                        nrhs: int = 3) -> str:
-    """'auto' method policy, shared by every solver family: the fused
-    single-kernel SPIKE solve on TPU while the chain fits in VMEM
-    (ops.spike_pallas.spike_fits_vmem — a byte model over
-    (num_blocks, block_size, nrhs), not just chain length), the per-level
-    Pallas/XLA cyclic reduction otherwise (longer chains, bigger blocks,
-    or any non-TPU backend)."""
-    import jax
+# Chain-solver names every driver accepts: the SOLVERS registry plus
+# 'dense_full' (solve_kkt's materialized bordered system).
+METHODS = frozenset(SOLVERS) | {"dense_full"}
 
-    from collocfem_tpu.ops.spike_pallas import spike_fits_vmem
 
-    if jax.default_backend() == "tpu" and spike_fits_vmem(
-        num_blocks, block_size, nrhs
-    ):
-        return "spike"
-    return "cr"
+def resolve_method(method: str) -> str:
+    """Resolve ``SolverOptions.method`` at solver-build time.
+
+    'auto' is the cyclic reduction ('cr'); any other name must be a known
+    chain solver.  An unknown name raises here, before tracing, instead of
+    selecting some other solver.
+    """
+    if method == "auto":
+        return "cr"
+    if method not in METHODS:
+        raise ValueError(
+            f"unknown KKT method {method!r}; expected 'auto' or one of "
+            f"{sorted(METHODS)}"
+        )
+    return method
 
 
 def _schur_solve(schur, r):
     """Tiny dense SPD solve of the (nq, nq) parameter Schur system.
 
-    Unrolled Cholesky (ops.smallblocks) instead of jnp.linalg.solve: the
-    XLA:TPU LuDecomposition expander only implements f32/c64, so the
-    LAPACK-style path cannot even compile under emulated f64 — and at
-    nq <= 16 the unrolled arithmetic is faster anyway. The Schur complement
-    of the equilibrated damped GN system is SPD by construction.
+    Unrolled Cholesky (ops.smallblocks) instead of jnp.linalg.solve: at
+    nq <= 16 the unrolled arithmetic fuses into the surrounding elementwise
+    code instead of a library call.  The Schur complement of the
+    equilibrated damped GN system is SPD by construction.
     """
     return spd_solve(schur, r[:, None])[:, 0]
 
@@ -54,7 +57,7 @@ def _equilibrate(sys: BlockTriSystem, lam, damp_scale=None):
 
     The collocation Hessian mixes O((2/h D)^2) defect curvature with O(1)
     measurement rows — condition numbers of 1e7+ that swamp float32 (the
-    TPU-native working precision; SURVEY.md §7 hard part 4).  Scaling by
+    default working precision; SURVEY.md §7 hard part 4).  Scaling by
     S = diag(damped H)^(-1/2) brings the diagonal to exactly 1; the scaled
     Schur complements stay SPD and the float32 factorization error drops by
     orders of magnitude.  Cost: O(K b^2) elementwise — negligible next to
@@ -173,8 +176,7 @@ def _matvec_soa(D, E, X):
 
 
 def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
-                  spike: bool = False, damp_scale=None,
-                  with_dmax: bool = False):
+                  damp_scale=None, with_dmax: bool = False):
     """SoA twin of :func:`solve_kkt` (sys: assemble.BlockTriSystemSoA).
 
     The entire pipeline — equilibration, factorization, multi-RHS apply,
@@ -187,38 +189,17 @@ def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
     solve.blocktri_dw): the single-shot path past the f32 conditioning
     cliff at K ~ 1e4 (cond ~ K^2), at ~an order of magnitude more
     elementwise work than the plain-f32 factorization.
-
-    ``spike=True`` routes the chain solve through the single-kernel SPIKE
-    path (ops.spike_pallas): factor + apply + back-substitution in ONE
-    Mosaic program — measured ~15x faster than the per-level CR pipeline on
-    v5e at the N=10k KKT shape, where kernel-launch count, not arithmetic,
-    sets the wall.  Each call refactors, so ``refine`` passes cost a full
-    re-solve (the hot path runs refine=0).
     """
     from collocfem_tpu.solve.blocktri import blocktri_cr_factor_soa
     from collocfem_tpu.solve.blocktri_dw import blocktri_cr_factor_soa_dw
 
     nq = sys.C.shape[0]
-    if spike and nq > 0 and refine == 0 and not dw:
-        # The whole pipeline — equilibration (via in-kernel scaled loads),
-        # multi-RHS SPIKE, arrowhead Schur, compose, unscale — in ONE
-        # Mosaic program; the XLA glue it replaces cost ~4x the kernel
-        # (ops.spike_pallas.kkt_solve_spike_fused).
-        from collocfem_tpu.ops.spike_pallas import kkt_solve_spike_fused
-
-        dx, dp, dmax = kkt_solve_spike_fused(
-            sys.D, sys.E, sys.B, sys.gx, sys.C, sys.gp, lam, damp_scale
-        )
-        return (dx, dp, dmax) if with_dmax else (dx, dp)
-    s, inv, inv_sp, dmax = _equilibrate_soa(sys, lam, damp_scale)
+    with jax.named_scope("equilibrate"):
+        s, inv, inv_sp, dmax = _equilibrate_soa(sys, lam, damp_scale)
     ret = (lambda dx, dp: (dx, dp, dmax)) if with_dmax else \
         (lambda dx, dp: (dx, dp))
-    if spike:
-        from collocfem_tpu.ops.spike_pallas import blocktri_solve_spike_fused
-
-        apply_fn = lambda G: blocktri_solve_spike_fused(s.D, s.E, G)
-    else:
-        factor = blocktri_cr_factor_soa_dw if dw else blocktri_cr_factor_soa
+    factor = blocktri_cr_factor_soa_dw if dw else blocktri_cr_factor_soa
+    with jax.named_scope("chain_factor"):
         apply_fn = factor(s.D, s.E)
 
     if nq == 0:
@@ -229,7 +210,8 @@ def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
         return ret(dx * inv, jnp.zeros((0,), sys.D.dtype))
 
     rhs = jnp.concatenate([s.gx[:, None, :], s.B], axis=1)  # (bd, 1+nq, K)
-    x = apply_fn(rhs)
+    with jax.named_scope("chain_apply"):
+        x = apply_fn(rhs)
     a_g, a_b = x[:, 0, :], x[:, 1:, :]
     if dw:
         # The Schur complement C - B^T A^{-1} B cancels almost exactly on

@@ -39,7 +39,7 @@ from collocfem_tpu.ops.assemble import (
     soa_from_blocks,
 )
 from collocfem_tpu.problem import Decision
-from collocfem_tpu.solve.kkt import (resolve_auto_method,
+from collocfem_tpu.solve.kkt import (resolve_method,
                                      solve_kkt, solve_kkt_soa)
 from collocfem_tpu.solve.lm_core import (
     HISTORY_COLS,
@@ -72,9 +72,9 @@ class SolverOptions:
     lam_down: float = 0.2
     lam_min: float = 1e-14
     lam_max: float = 1e12
-    # 'auto' resolves at solver-build time: the single-kernel SPIKE chain
-    # solve on TPU (launch-count-bound regime), per-level CR elsewhere.
-    method: str = "auto"     # 'auto'|'spike'|'cr'|'cr_dw'|'scan'|'dense'|...
+    # Chain solver (solve.kkt.METHODS); 'auto' resolves at solver-build
+    # time to the SoA cyclic reduction 'cr'.
+    method: str = "auto"     # 'auto'|'cr'|'cr_dw'|'scan'|'dense'|...
     kkt_refine: int = 0      # iterative-refinement passes per KKT solve
     verbose: bool = False
     irls_delta: float = 0.0  # >0 enables Huber IRLS reweighting
@@ -121,17 +121,10 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
     (BASELINE.json config 5).
     """
     opt = options
-    if opt.method == "auto":
-        opt = dataclasses.replace(
-            opt, method=resolve_auto_method(
-                problem.mesh.num_blocks,
-                problem.mesh.degree * problem.nv,
-                1 + problem.model.nq,
-            )
-        )
+    opt = dataclasses.replace(opt, method=resolve_method(opt.method))
     nv = problem.nv
     num_nodes = problem.num_nodes
-    soa = opt.method in ("cr", "cr_dw", "spike")
+    soa = opt.method in ("cr", "cr_dw")
 
     def solve_step(sys, lam):
         """KKT solve of an assembled system: (dx, dp, dV, gnorm, dmax).
@@ -148,7 +141,6 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
             dx, dp, dmax = solve_kkt_soa(
                 sys, lam, opt.kkt_refine,
                 dw=opt.method == "cr_dw",
-                spike=opt.method == "spike",
                 with_dmax=True,
             )
             dV = blocks_to_nodes_soa(dx, num_nodes, nv)
@@ -194,7 +186,7 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
         elif opt.state_dw:
             if not soa:
                 raise ValueError("state_dw requires an SoA method "
-                                 "(spike/cr/cr_dw)")
+                                 "(cr/cr_dw)")
             from collocfem_tpu.ops import doubleword as dw
 
             def trial_fn(z, carry, lam):
@@ -229,10 +221,15 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
             def trial_fn(z, sys, lam):
                 # ``sys`` was assembled at z by the PREVIOUS iteration (or
                 # carry0); assemble at the trial point, reusing its
-                # residuals for the double-word trial cost.
-                dx_flat, dp, dV, gnorm, dmax = solve_step(sys, lam)
+                # residuals for the double-word trial cost.  The named
+                # scopes label the device kernels of each phase in
+                # profiler traces (benchmarks/trace_iteration.py).
+                with jax.named_scope("kkt_solve"):
+                    dx_flat, dp, dV, gnorm, dmax = solve_step(sys, lam)
                 z_try = Decision(V=z.V + dV, p=z.p + dp)
-                sys_try, ct = assemble_c(problem, z_try, data, with_cost=True)
+                with jax.named_scope("assemble"):
+                    sys_try, ct = assemble_c(problem, z_try, data,
+                                             with_cost=True)
                 gdot, snorm2 = fused_quadforms(
                     gx_flat(sys), sys.gp, dx_flat, dp
                 )

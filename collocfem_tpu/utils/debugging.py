@@ -1,8 +1,7 @@
 """Debug-build guards: NaN/inf checking through jitted solves.
 
 SURVEY.md §5 "Race detection / sanitizers": on-device code has no threads of
-its own; the rebuild's sanitizer tier is (a) Pallas kernels exercised in
-interpret mode (tests/test_blocktri_pallas.py) and (b) this module —
+its own; the rebuild's sanitizer tier is this module —
 ``jax.experimental.checkify`` wrappers that turn silent NaN/inf propagation
 inside jitted solver loops into reported errors, for debug builds only (the
 checks cost a few % and are off in production paths).

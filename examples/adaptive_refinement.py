@@ -5,7 +5,7 @@ on a coarse uniform mesh, concentrate elements where the collocation
 polynomial violates the ODE between nodes, interpolate the previous solution
 onto the refined mesh, and re-solve.
 
-Usage: python examples/adaptive_refinement.py [--platform cpu|default]
+Usage: python examples/adaptive_refinement.py [--platform cpu|gpu]
 """
 
 import sys, os

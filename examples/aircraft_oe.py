@@ -16,7 +16,7 @@ header) flows through ``collocfem_tpu.utils.io.load_measurements`` —
 columns t, alpha, q, az, elevator.  ``--data ""`` (or a missing file)
 falls back to in-process synthesis with the same seed.
 
-Usage: python examples/aircraft_oe.py [--platform cpu|default]
+Usage: python examples/aircraft_oe.py [--platform cpu|gpu]
          [--data PATH] [--plot]
 """
 

@@ -5,12 +5,12 @@ different initial conditions and forcing frequencies share one parameter
 vector; every per-experiment Gauss-Newton system is assembled and solved
 batched (vmap), coupled only through the tiny shared-parameter Schur
 complement.  The reference loops over experiments in one Python process —
-this is the config with the largest TPU win.  With ``--devices dp`` the
+here one batched solve replaces that loop.  With ``--devices dp`` the
 batch is additionally sharded over a data-parallel device mesh axis
 (a psum per iteration is the only cross-device traffic).
 
 Usage: python examples/batched_multi_experiment.py
-         [--platform cpu|default] [--experiments 1024] [--elements 10]
+         [--platform cpu|gpu] [--experiments 1024] [--elements 10]
          [--devices 1]
 """
 

@@ -11,7 +11,7 @@ damping-ratio constraint
 
 — nonlinear in the parameters, ACTIVE at the solution (the data's true
 damping is ~0.56 < ZETA_MIN = 0.6), solved on-device by the log-barrier
-interior-point estimator ``solve.constrained`` (TPU-native IPOPT stand-in:
+interior-point estimator ``solve.constrained`` (on-device IPOPT stand-in:
 no callbacks, the whole outer x inner loop is one jitted program).
 
 The script prints the unconstrained estimate (violates the spec), the
@@ -19,7 +19,7 @@ constrained estimate (rides zeta = ZETA_MIN), and the external KKT
 check: multiplier nu = mu/(-g) >= 0 and stationarity of the true
 estimation gradient, grad_p cost + nu grad_p g ~ 0.
 
-Usage: python examples/constrained_estimation.py [--platform cpu|default]
+Usage: python examples/constrained_estimation.py [--platform cpu|gpu]
          [--data PATH] [--zeta-min 0.6]
 """
 

@@ -8,7 +8,7 @@ joint state-path + parameter estimation (the Automatica-2017 line of work
 per SURVEY.md §0).  The KKT system is the large block-banded one; this is
 the config that stresses the sparse solver.
 
-Usage: python examples/duffing_joint.py [--platform cpu|default] [--plot]
+Usage: python examples/duffing_joint.py [--platform cpu|gpu] [--plot]
 """
 
 import sys, os

@@ -7,7 +7,7 @@ update + sliding-window MAP solve) and emits the newest-state estimate.
 The reference has no online estimator (SURVEY.md §2) — this is the rebuild's
 extension for deployment use.
 
-Usage: python examples/mhe_online.py [--platform cpu|default] [--plot]
+Usage: python examples/mhe_online.py [--platform cpu|gpu] [--plot]
 """
 
 import sys, os

@@ -7,7 +7,7 @@ AL/barrier solver used for fixed-horizon OCP (pendulum swing-up) handles the
 problem unchanged.  Analytic optimum for rest-to-rest distance d with
 |u| ≤ u_max: T* = 2·sqrt(d/u_max) (bang-bang).
 
-Usage: python examples/min_time_ocp.py [--platform cpu|default] [--plot]
+Usage: python examples/min_time_ocp.py [--platform cpu|gpu] [--plot]
 """
 
 import sys, os

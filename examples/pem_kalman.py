@@ -12,7 +12,7 @@ noisy Duffing oscillator:
      as its warm start and polish with Gauss-Newton; report parameter
      standard errors from the GN Fisher matrix.
 
-Usage: python examples/pem_kalman.py [--platform cpu|default] [--plot]
+Usage: python examples/pem_kalman.py [--platform cpu|gpu] [--plot]
 """
 
 import sys, os

@@ -6,7 +6,7 @@ hanging (theta=0) to upright (theta=pi) minimizing integrated torque^2,
 hands this to IPOPT (C++ callbacks); here the augmented-Lagrangian +
 log-barrier Gauss-Newton solve is one jitted on-device program.
 
-Usage: python examples/pendulum_swingup.py [--platform cpu|default] [--plot]
+Usage: python examples/pendulum_swingup.py [--platform cpu|gpu] [--plot]
 """
 
 import sys, os

@@ -5,7 +5,7 @@ known parameters, adds measurement noise, and recovers [mu, b] by damped
 Gauss-Newton on the collocation least-squares problem — the whole solve is
 one jitted on-device loop.
 
-Usage: python examples/vdp_estimation.py [--platform cpu|default] [--plot]
+Usage: python examples/vdp_estimation.py [--platform cpu|gpu] [--plot]
 """
 
 import sys, os

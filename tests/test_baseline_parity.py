@@ -1,6 +1,6 @@
-"""Float64 parity between the TPU package and the scipy CPU reference
+"""Float64 parity between the device package and the scipy CPU reference
 pipeline (SURVEY.md §6: residual parity <= 1e-9 is the acceptance bar;
-§4: "Pallas-solver vs scipy reference solves" and parity harness)."""
+§4: solver vs scipy reference solves and parity harness)."""
 
 import jax
 import jax.numpy as jnp
@@ -50,11 +50,11 @@ def test_residual_parity(setup):
     p = np.array([0.8, 0.4])
     r_base = base.residuals(V, p)
     z = Decision(V=jnp.asarray(V), p=jnp.asarray(p))
-    r_tpu = np.asarray(prob.residual_vector(z, data))
+    r_pkg = np.asarray(prob.residual_vector(z, data))
     # Package appends (zero-weight) prior residuals; element part must match.
-    assert r_tpu.shape[0] == r_base.shape[0] + 4
-    np.testing.assert_allclose(r_tpu[: r_base.shape[0]], r_base, atol=1e-9)
-    assert np.max(np.abs(r_tpu[r_base.shape[0]:])) == 0.0
+    assert r_pkg.shape[0] == r_base.shape[0] + 4
+    np.testing.assert_allclose(r_pkg[: r_base.shape[0]], r_base, atol=1e-9)
+    assert np.max(np.abs(r_pkg[r_base.shape[0]:])) == 0.0
 
 
 def test_jacobian_parity(setup):
@@ -94,7 +94,7 @@ def test_end_to_end_parity(setup):
 
 def test_stacked_multi_experiment_parity():
     """The block-diagonal-stacked CPU counterpart of config 5
-    (baseline_cpu.configs_baseline) matches the TPU batch cost exactly and
+    (baseline_cpu.configs_baseline) matches the package's batch cost exactly and
     its Jacobian (incl. the shared-p arrowhead and prior rows) passes FD."""
     from baseline_cpu.configs_baseline import (
         build_stacked_multi_experiment,
@@ -117,12 +117,12 @@ def test_stacked_multi_experiment_parity():
     V = rng.standard_normal((n_exp, mesh.num_nodes, 2))
     p = np.array([1.1, 0.4])
     z = BatchDecision(V=jnp.asarray(V), p=jnp.asarray(p))
-    c_tpu = float(
+    c_pkg = float(
         batch_cost(prob, z, data_batch, jnp.zeros(2), jnp.full(2, 1e-3))
     )
     r = base.residuals(V.reshape(-1, 2), p)
     c_cpu = 0.5 * r @ r
-    assert abs(c_cpu - c_tpu) <= 1e-12 * abs(c_tpu)
+    assert abs(c_cpu - c_pkg) <= 1e-12 * abs(c_pkg)
 
     J = base.jacobian(V.reshape(-1, 2), p)
     m_dof = n_exp * mesh.num_nodes * 2

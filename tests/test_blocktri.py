@@ -1,6 +1,6 @@
 """Block-tridiagonal solver tests: scan (Thomas), cyclic reduction, dense
 — all must agree with a dense numpy solve on random SPD systems
-(SURVEY.md §4: "Pallas-solver vs jnp.linalg/scipy reference solves")."""
+(SURVEY.md §4: solver vs jnp.linalg/scipy reference solves)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,3 +68,38 @@ def test_large_chain_wellposed():
     r[:-1] += np.einsum("kij,kjr->kir", E[:-1], x[1:])
     r[1:] += np.einsum("kji,kjr->kir", E[:-1], x[:-1])
     np.testing.assert_allclose(r, G, rtol=1e-8, atol=1e-8)
+
+
+def _to_soa(a):
+    return jnp.asarray(np.moveaxis(a, 0, -1))
+
+
+@pytest.mark.parametrize(
+    "k,b,r", [(37, 4, 1), (37, 8, 3), (100, 4, 3), (130, 8, 1)]
+)
+def test_cr_factor_soa_matches_f64_dense(k, b, r):
+    """The SoA factor/apply CR (the hot-path chain solve) against a float64
+    dense solve: non-power-of-two K (padding), both block sizes."""
+    from collocfem_tpu.solve.blocktri import blocktri_cr_factor_soa
+
+    D, E, G = random_spd_blocktri(k, b, r, seed=k + b + r)
+    want = dense_reference(D, E, G)
+    apply = blocktri_cr_factor_soa(_to_soa(D), _to_soa(E))
+    got = np.moveaxis(np.asarray(apply(_to_soa(G))), -1, 0)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+def test_factor_apply_matches_one_shot():
+    """Factor once, apply to two right-hand sides: both match the one-shot
+    cyclic reduction."""
+    from collocfem_tpu.solve.blocktri import blocktri_cr_factor
+
+    D, E, G = (jnp.asarray(a) for a in random_spd_blocktri(300, 6, 2, seed=3))
+    apply = blocktri_cr_factor(D, E)
+    np.testing.assert_allclose(np.asarray(apply(G)),
+                               np.asarray(blocktri_solve_cr(D, E, G)),
+                               rtol=1e-9, atol=1e-10)
+    G2 = jnp.asarray(np.random.default_rng(4).standard_normal(G.shape))
+    np.testing.assert_allclose(np.asarray(apply(G2)),
+                               np.asarray(blocktri_solve_cr(D, E, G2)),
+                               rtol=1e-9, atol=1e-10)

@@ -67,7 +67,7 @@ def test_dw_beats_f32_on_long_ill_conditioned_chain():
     scale = np.abs(X_ref).max()
 
     X_f32 = np.asarray(
-        blocktri_solve_cr(D, E, G, pallas=False), dtype=np.float64)
+        blocktri_solve_cr(D, E, G), dtype=np.float64)
     X_dw = np.asarray(blocktri_solve_cr_dw(D, E, G), dtype=np.float64)
 
     err_f32 = np.abs(X_f32 - X_ref).max() / scale

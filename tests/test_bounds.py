@@ -1,4 +1,4 @@
-"""Bound-constrained estimation (solve/bounds.py): the TPU-native stand-in
+"""Bound-constrained estimation (solve/bounds.py): the on-device stand-in
 for the reference lineage's IPOPT variable bounds (SURVEY.md §2b row 3).
 
 Checks: inactive bounds reproduce the unconstrained GN solution; an active

@@ -1,5 +1,5 @@
 """General inequality-constrained estimation (solve/constrained.py): the
-TPU-native stand-in for the reference lineage's IPOPT on estimation NLPs
+On-device stand-in for the reference lineage's IPOPT on estimation NLPs
 with nonlinear g(x,u,p,t) <= 0 / g(p) <= 0 (SURVEY.md §2a "Inequality
 handling" — IPOPT served ALL problem classes, not just OCP).
 

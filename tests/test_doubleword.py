@@ -13,7 +13,6 @@ import numpy as np
 
 from collocfem_tpu.ops import doubleword as dw
 from collocfem_tpu.ops import smallblocks_dw as sbdw
-from collocfem_tpu.ops import smallblocks_soa as soa
 
 RNG = np.random.default_rng(42)
 # ~48-bit arithmetic: unit roundoff 2^-49 ~ 1.8e-15; allow a few ulps.
@@ -108,8 +107,10 @@ def test_dw_cholesky_solve_vs_f64():
     X_dw = np.asarray(sbdw.to_single(
         sbdw.chol_solve(sbdw.chol(sbdw.from_single(A32)),
                         sbdw.from_single(B32))), dtype=np.float64)
-    X_f32 = np.asarray(
-        soa.chol_solve(soa.chol(A32), B32), dtype=np.float64)
+    # Plain float32 solve (LAPACK in f32; numpy would solve in f64).
+    X_f32 = np.moveaxis(np.asarray(jnp.linalg.solve(
+        jnp.moveaxis(A32, -1, 0), jnp.moveaxis(B32, -1, 0)),
+        dtype=np.float64), 0, -1)
 
     scale = np.abs(Xref).max(axis=(0, 1))        # per chain slice
     rel_dw = (np.abs(X_dw - Xref).max(axis=(0, 1)) / scale)

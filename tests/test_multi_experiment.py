@@ -169,7 +169,7 @@ def test_step_layouts_agree(batch_setup):
     (same per-experiment damping semantics, same Schur reduction)."""
     from collocfem_tpu.ops.assemble import assemble_gn_soa_batched
     from collocfem_tpu.parallel.batch import (
-        concat_chain_solver,
+        concat_chain_solve,
         shared_gn_step,
         shared_gn_step_soa,
     )
@@ -182,7 +182,7 @@ def test_step_layouts_agree(batch_setup):
     sys = assemble_gn_soa_batched(prob, z0.V, z0.p, data_batch)
     dV_s, dp_s, aux_s = shared_gn_step_soa(
         prob, sys, lam, z0.p, p_prior, p_w,
-        n_exp=N_EXP, chain_solve=concat_chain_solver(),
+        n_exp=N_EXP, chain_solve=concat_chain_solve,
     )
     np.testing.assert_allclose(np.asarray(dp_s), np.asarray(dp_b),
                                rtol=1e-9, atol=1e-12)
@@ -205,3 +205,36 @@ def test_solver_layouts_agree(batch_setup, soa_solution):
     np.testing.assert_allclose(
         np.asarray(z_s.p), np.asarray(z_b.p), rtol=1e-7, atol=1e-9
     )
+
+
+def test_layouts_agree_on_config5_shaped_data():
+    """Config 5's shape (10-element degree-4 experiments, the shared
+    generator of baseline_cpu) through both layouts with the default chain
+    solver: the concatenated SoA chain and the vmapped block-major CR give
+    the same fixed-work iterates."""
+    from baseline_cpu.configs_baseline import make_config5_data
+
+    n_exp = 16
+    mesh, t_meas, y_all, u_all = make_config5_data(n_exp, 10)
+    prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
+                                   defect_weight=300.0)
+    datas = [prob.pack_data(y_all[e], t_meas, u_nodes=u_all[e],
+                            meas_weight=100.0) for e in range(n_exp)]
+    data_batch = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *datas)
+    z0 = BatchDecision(
+        V=jnp.stack([prob.initial_guess_from_data(t_meas, y_all[e],
+                                                  p0=[0, 0]).V
+                     for e in range(n_exp)]),
+        p=jnp.asarray([2.0, 0.2], prob.dtype))
+    pp = jnp.zeros(2, prob.dtype)
+    pw = jnp.full((2,), 1e-3, prob.dtype)
+    opts = SolverOptions(maxiter=15, gtol=0.0, lam0=1e-6, lam_max=1e30)
+    z_s, st_s = make_multi_experiment_solver(prob, opts, layout="soa")(
+        z0, data_batch, pp, pw)
+    z_b, st_b = make_multi_experiment_solver(prob, opts, layout="blocks")(
+        z0, data_batch, pp, pw)
+    assert int(st_s.iterations) == int(st_b.iterations) == 15
+    np.testing.assert_allclose(np.asarray(z_s.p), np.asarray(z_b.p),
+                               rtol=1e-8)
+    np.testing.assert_allclose(np.asarray(z_s.V), np.asarray(z_b.V),
+                               rtol=1e-7, atol=1e-9)

@@ -1,5 +1,5 @@
 """Unrolled tiny-block linear algebra vs jnp.linalg (SURVEY.md §4:
-Pallas/TPU-path solves vs jnp.linalg reference)."""
+hot-path solves vs jnp.linalg reference)."""
 
 import jax
 import jax.numpy as jnp

@@ -7,7 +7,7 @@ import pytest
 
 from collocfem_tpu.parallel.meshes import make_device_mesh
 from collocfem_tpu.parallel.spike import spike_sharded_solver
-from tests.test_blocktri import dense_reference, random_spd_blocktri
+from test_blocktri import dense_reference, random_spd_blocktri
 
 
 @pytest.mark.parametrize(
